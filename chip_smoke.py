@@ -1,35 +1,60 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # the run: build, check, time
+    python3 chip_smoke.py --profile    # also torch.profiler tables by kernel
 
-Drives the port's serving chain (dsp_audio_project_tpu_torch) once at its
-real size — 44.1 -> 48 kHz SRC (L/M = 160/147) + the 5-band EQ + |rfft|
-spectra of x, y and z, 60 s signals, batch 8 — and checks it.  Phases, one
-or more lines each:
+Drives the port (dsp_audio_project_tpu_torch) at its real size — 44.1 ->
+48 kHz SRC (L/M = 160/147) + the 5-band EQ + |rfft| spectra of x, y and z,
+60 s signals, batch 8 — through the entry points a user calls, and checks
+it.  Phases, one or more lines each:
 
   1. device: card name, ``nvidia-smi`` name and power limit, TF32 off;
-  2. build: both CUDA kernels from csrc/ with nvcc (seconds);
-  3. K1 (EQ-fused FIR) vs its plain torch version at the serving shape;
-  4. K2 (four-step |rfft|) vs its plain version at (24, 2048) and at one
-     row of every power of two 256..8192;
-  5. the chain through ``AudioPipeline.forward_cat_spectra``: both kernels
-     must have launched, z must reach >= 60 dB against the numpy oracle and
-     so must the three spectra;
-  6. CUDA-event timings (median of 20 runs after 20 warm-up runs): the
-     chain per 60 s signal (per call, and per call of 20 back-to-back
-     calls), each kernel beside its plain version.
+  2. build: every CUDA kernel from csrc/ with nvcc, one process per source,
+     all started together (seconds);
+  3. [k1] K1 (EQ-fused FIR) vs its plain torch version at the serving shape;
+  4. [k2] K2 (four-step |rfft|) vs its plain version at (24, 2048) and at
+     one row of every power of two 256..8192;
+  5. [k3] the frames FIR kernel (K3-K6, E1) vs its plain version at the
+     serving shape, and each entry point that runs it (fir_frames 'rect',
+     'class', 'shear', the flat K6 forward, fir_path='pallas') once at a
+     small shape: each must launch the kernel and agree;
+  6. [k9] the EQ finish kernel vs its plain version at the cat path's and
+     the frames path's serving shapes and at a U % 4 != 0 plan (441/480);
+  7. [slice] the cat chain ``forward_cat_spectra``: K1, K9 and K2 must have
+     launched; z and the spectra >= 60 dB against the numpy oracle; z with
+     the kernel finish vs the torch finish > 120 dB;
+  8. [frames] ``pipe(x, fs, with_spectra=True)`` (the JAX package's
+     ``__call__``) and ``forward_frames_spectra``: the frames kernel, K9
+     and K2 must have launched; z, y and the spectra >= 60 dB against the
+     oracle outputs of [slice] (same x and config);
+  9. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs):
+     the chains per 60 s signal (per call, and per call of 20 back-to-back
+     calls; the host's own time per call), the cat chain with either
+     finish in turns, and each kernel beside its plain version and one
+     PyTorch library call computing the same function (``library_ms``;
+     the port never calls it).  ``--profile`` adds device time by kernel
+     (torch.profiler) for each chain.
 
-The line before the last is the kernel record
+Each path is driven with the launch counts set to 0 just before it and
+read just after.  The third line from the end is the card's name and power
+limit as ``nvidia-smi`` gives them; the line before the last is the kernel
+record
 {"kernels": [{"name", "route", "source", "replaces", "launches",
-"max_abs_err", "ms", "plain_ms"}, ...]}; the last line is
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Any failed phase raises, so the script exits nonzero without that line; it
-also fails when no CUDA device is visible.  Imports nothing of JAX.
+"max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"},
+...]}: ``launches`` sums the kernel's launches over the main-path runs of
+[slice] and [frames]; ``bound_ms`` is the larger of the operations over
+the H100's fp32 peak (67 TFLOP/s, an FMA is 2) and the bytes (each input
+read once, each output written once) over 3.35 TB/s, from this run's
+shapes.  The last line is {"ok": true, "device": {"platform": "gpu",
+"kind": ..., "count": ...}}.  Any failed phase raises, so the script exits
+nonzero without those lines; it also fails when no CUDA device is visible.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -47,6 +72,9 @@ REPS = 20
 WARMUP = 20   # the card idles during the host-side oracle phase: ramp it up
 FFT_ROWS = 3 * BATCH
 NFFT = 2048
+PEAK_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores (data sheet)
+PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s (data sheet)
+DEVICE = "cuda"
 
 
 def log(msg: str) -> None:
@@ -112,6 +140,28 @@ def back_to_back_ms(fn, calls: int = REPS) -> float:
     return start.elapsed_time(end) / calls
 
 
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(least ms the card could take, what binds it)."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def compare(tag: str, name: str, got: torch.Tensor, ref: torch.Tensor,
+            bound_db: float = 120.0) -> float:
+    """Kernel vs plain: SNR > bound_db and max abs err <= 1e-5 * max|ref|."""
+    if got.shape != ref.shape:
+        raise RuntimeError(f"{tag} {name} shape {tuple(got.shape)} != "
+                           f"{tuple(ref.shape)}")
+    snr = snr_db(ref, got)
+    err = float((got - ref).abs().max())
+    top = float(ref.abs().max())
+    log(f"[{tag}] {name} {tuple(got.shape)}: snr {snr:.1f} dB (bound "
+        f"{bound_db:.0f}), max abs err {err:.3e} (bound 1e-5 * {top:.3e})")
+    if not (snr > bound_db and err <= 1e-5 * top):
+        raise RuntimeError(f"{tag} {name} disagrees with its plain version")
+    return err
+
+
 def phase_device() -> tuple[str, str]:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: this smoke run needs a GPU")
@@ -132,25 +182,49 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build() -> None:
-    from dsp_audio_project_tpu_torch.kernels import _build, fir_class, rfft
+    from dsp_audio_project_tpu_torch.kernels import _build
+    from dsp_audio_project_tpu_torch.kernels.eq_finish import (
+        _LAUNCHERS as EQ_FINISH,
+    )
+    from dsp_audio_project_tpu_torch.kernels.fir_class import (
+        _LAUNCHERS as FIR_CAT,
+    )
+    from dsp_audio_project_tpu_torch.kernels.rfft import (
+        _LAUNCHERS as RFFT,
+    )
 
-    for name, launchers in (("fir_cat", fir_class._LAUNCHERS),
-                            ("rfft_four_step", rfft._LAUNCHERS)):
-        t0 = time.perf_counter()
+    libs = (("fir_cat", FIR_CAT), ("eq_finish", EQ_FINISH),
+            ("rfft_four_step", RFFT))
+    t0 = time.perf_counter()
+    _build.build([name for name, _ in libs])
+    for name, launchers in libs:
         _build.load(name, launchers)
-        log(f"[build] {name}.cu -> {_build.library_path(name).name}: "
-            f"{time.perf_counter() - t0:.2f} s")
+        log(f"[build] {name}.cu -> {_build.library_path(name).name}")
+    log(f"[build] {len(libs)} sources, nvcc in parallel: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def conv_yardstick(x: torch.Tensor, g: torch.Tensor, s: int, f_pad: int,
+                   pad_left: int):
+    """F.conv1d computing windows @ g as (B, V, f_pad), on x padded ahead
+    of the timed call: the library yardstick of K1 and the frames kernel."""
+    import torch.nn.functional as F
+
+    W = g.shape[0]
+    total = (f_pad - 1) * s + W
+    xp = F.pad(x, (pad_left, max(0, total - pad_left - x.shape[-1])))
+    xp = xp[..., :total].unsqueeze(1).contiguous()
+    w = g.t().unsqueeze(1).contiguous()            # (V, 1, W)
+    return lambda: F.conv1d(xp, w, stride=s)
 
 
 def phase_k1(pipe, x: torch.Tensor) -> dict:
     from dsp_audio_project_tpu_torch.kernels.fir_class import (
         fir_cat_plain, frame_grid, polyphase_fir_class_rect_cat,
     )
-    from dsp_audio_project_tpu_torch.ops.src import make_plan
 
-    cfg = pipe.config
-    plan = make_plan(cfg.src.L, cfg.src.M, cfg.src.taps_rule_factor)
-    n_out = cfg.src.output_length(x.shape[-1])
+    plan = pipe._plan()
+    n_out = pipe.config.src.output_length(x.shape[-1])
     f_pad = frame_grid(n_out, plan.P)
     g2 = pipe.g2
 
@@ -160,22 +234,15 @@ def phase_k1(pipe, x: torch.Tensor) -> dict:
     def plain():
         return fir_cat_plain(x, g2, plan.P, plan.s, f_pad, -plan.lo)
 
-    y0, inj = kern()
-    y0_ref, inj_ref = plain()
+    (y0, inj), (y0_ref, inj_ref) = kern(), plain()
     torch.cuda.synchronize()
-    errs = []
-    for name, got, ref in (("y0", y0, y0_ref), ("inj", inj, inj_ref)):
-        if got.shape != ref.shape:
-            raise RuntimeError(f"K1 {name} shape {got.shape} != {ref.shape}")
-        snr = snr_db(ref, got)
-        err = float((got - ref).abs().max())
-        top = float(ref.abs().max())
-        log(f"[k1] {name} {tuple(got.shape)}: snr {snr:.1f} dB (bound 120), "
-            f"max abs err {err:.3e} (bound 1e-5 * {top:.3e})")
-        if not (snr > 120.0 and err <= 1e-5 * top):
-            raise RuntimeError(f"K1 {name} disagrees with its plain version")
-        errs.append(err)
-    return {"max_abs_err": max(errs), "kern": kern, "plain": plain}
+    err = max(compare("k1", "y0", y0, y0_ref), compare("k1", "inj", inj, inj_ref))
+    lib = conv_yardstick(x, g2, plan.s, f_pad, -plan.lo)
+    V = g2.shape[1]
+    b = bound(2.0 * x.shape[0] * f_pad * plan.W * V,
+              4.0 * (x.numel() + g2.numel() + x.shape[0] * f_pad * V))
+    return {"max_abs_err": err, "kern": kern, "plain": plain, "lib": lib,
+            "bound": b, "y0": y0, "inj": inj}
 
 
 def phase_k2() -> dict:
@@ -188,7 +255,7 @@ def phase_k2() -> dict:
     hann = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(NFFT) / (NFFT - 1))
     rows = torch.as_tensor(
         (rng.standard_normal((FFT_ROWS, NFFT)) * hann).astype(np.float32),
-        device="cuda",
+        device=DEVICE,
     )
     n1 = _four_step_kernel_n1(NFFT)
     c, d2 = _device_tables(NFFT, n1, rows.device)
@@ -211,7 +278,7 @@ def phase_k2() -> dict:
     while n <= 8192:
         n1_n = _four_step_kernel_n1(n)
         row = torch.as_tensor(rng.standard_normal((1, n)).astype(np.float32),
-                              device="cuda")
+                              device=DEVICE)
         cn, d2n = _device_tables(n, n1_n, row.device)
         g = rfft_four_step_magnitude(row, n1=n1_n)
         r = rfft_four_step_plain(row, cn, d2n, n1_n)
@@ -223,50 +290,271 @@ def phase_k2() -> dict:
         if not (s_plain > 110.0 and s_exact > 110.0):
             raise RuntimeError(f"K2 disagrees at N={n}")
         n *= 2
-    return {"max_abs_err": err, "kern": kern, "plain": plain}
+    # rfft's operation count (2.5 N log2 N real flops a row); the DFT
+    # tables are the algorithm's, not the function's inputs.
+    b = bound(2.5 * FFT_ROWS * NFFT * math.log2(NFFT),
+              4.0 * FFT_ROWS * (NFFT + NFFT // 2 + 1))
+    return {"max_abs_err": err, "kern": kern, "plain": plain,
+            "lib": lambda: torch.fft.rfft(rows).abs(), "bound": b}
 
 
-def phase_slice(pipe, x: torch.Tensor, xs: np.ndarray) -> dict:
+def phase_k3(pipe, x: torch.Tensor, small: torch.Tensor) -> dict:
+    import dsp_audio_project_tpu_torch as pt
+    from dsp_audio_project_tpu_torch.kernels import (
+        fir_frames, launch_counts, reset_launch_counts,
+    )
+    from dsp_audio_project_tpu_torch.kernels.fir_class import (
+        fir_frames_kernel, fir_frames_plain, frame_grid,
+        polyphase_fir_class_flat,
+    )
+
+    plan = pipe._plan()
+    cfg = pipe.config
+    n_out = cfg.src.output_length(x.shape[-1])
+    f_pad = frame_grid(n_out, plan.P)
+    G = pipe.G
+
+    def kern():
+        return fir_frames_kernel(x, G, plan.s, f_pad, -plan.lo)
+
+    def plain():
+        return fir_frames_plain(x, G, plan.s, f_pad, -plan.lo)
+
+    y, ref = kern(), plain()
+    torch.cuda.synchronize()
+    err = compare("k3", "frames", y, ref)
+    # Every entry point that runs the kernel, once, at a small shape.
+    ns = cfg.src.output_length(small.shape[-1])
+    want = fir_frames_plain(small, G, plan.s, -(-ns // plan.P), -plan.lo)
+    want_flat = want.reshape(small.shape[0], -1)[:, :ns]
+    pallas = pt.AudioPipeline(pt.PipelineConfig(
+        src=cfg.src, eq=cfg.eq, kernels=pt.KernelConfig(fir_path="pallas")),
+        device=DEVICE)
+    routes = {
+        "fir_frames rect": lambda: fir_frames(small, plan, ns, kernel="rect"),
+        "fir_frames class": lambda: fir_frames(small, plan, ns,
+                                               kernel="class"),
+        "fir_frames shear": lambda: fir_frames(small, plan, ns,
+                                               kernel="shear"),
+        "flat (K6)": lambda: polyphase_fir_class_flat(small, plan, ns),
+        "fir_path='pallas' (E1)": lambda: pallas._forward(small, FS)[1],
+    }
+    for name, fn in routes.items():
+        reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        launched = launch_counts()["fir_frames_kernel"]
+        if launched < 1:
+            raise RuntimeError(f"{name} did not launch the frames kernel")
+        want_r = want if got.ndim == 3 else want_flat
+        s = snr_db(want_r, got)
+        log(f"[k3] {name} {tuple(got.shape)}: launched {launched}, snr vs "
+            f"plain {s:.1f} dB (bound 120)")
+        if not s > 120.0:
+            raise RuntimeError(f"{name} disagrees with the plain version")
+    lib = conv_yardstick(x, G, plan.s, f_pad, -plan.lo)
+    b = bound(2.0 * x.shape[0] * f_pad * plan.W * plan.P,
+              4.0 * (x.numel() + G.numel() + y.numel()))
+    return {"max_abs_err": err, "kern": kern, "plain": plain, "lib": lib,
+            "bound": b, "y": y}
+
+
+def phase_k9(pipe, k1: dict, k3: dict) -> dict:
+    from dsp_audio_project_tpu_torch.kernels.eq_finish import (
+        eq_finish, eq_finish_plain,
+    )
+    from dsp_audio_project_tpu_torch.kernels.fir_class import frame_grid
+    from dsp_audio_project_tpu_torch.ops.eq import _true_states
+    from dsp_audio_project_tpu_torch.ops.src import make_plan
+
+    y0, inj = k1["y0"], k1["inj"]
+    B, F_, U = y0.shape
+    d = inj.shape[-1]
+    K = F_ // 128
+    tables = pipe._tables(FS, K)
+    gout = tables["group_out"]
+    st = _true_states(inj.reshape(B, K, 128, d), tables)[0].reshape(B, F_, d)
+    # The frames path reads y0 as a column slice of [y0 | inj | 0].
+    cat = k3["y"].reshape(B, K, 128, U) @ tables["w_frames"]
+    st_f = _true_states(cat[..., U:U + d], tables)[0]
+    # A U % 4 != 0 plan (441/480) at its serving shape: the scalar path.
+    rng = np.random.default_rng(13)
+    p441 = make_plan(441, 480)
+    f441 = frame_grid(-(-int(SECONDS * FS) * 441 // 480), p441.P)
+    y441, st441, g441 = (
+        torch.as_tensor((scale * rng.standard_normal(shape)).astype(np.float32),
+                        device=DEVICE)
+        for scale, shape in ((0.5, (B, f441, 441)), (1.0, (B, f441, d)),
+                             (0.2, (d, 441))))
+    cases = (("cat (contiguous y0)", y0, st, gout),
+             (f"frames (y0 slice, row stride {cat.shape[-1]})",
+              cat[..., :U], st_f, gout),
+             ("441/480 (U = 441)", y441, st441, g441))
+    errs = []
+    for name, a, s_, g in cases:
+        z, ref = eq_finish(a, s_, g), eq_finish_plain(a, s_, g)
+        torch.cuda.synchronize()
+        errs.append(compare("k9", name, z, ref))
+
+    def kern():
+        return eq_finish(y0, st, gout)
+
+    def plain():
+        return eq_finish_plain(y0, st, gout)
+
+    b = bound(2.0 * y0.numel() * d,
+              4.0 * (2 * y0.numel() + st.numel() + gout.numel()))
+    return {"max_abs_err": errs[0], "kern": kern, "plain": plain,
+            "lib": None, "bound": b}
+
+
+def oracle_outputs(pipe, xs: np.ndarray) -> list:
+    """Per signal: (y, z, [spectrum of x, y, z]) from the numpy oracle."""
     from dsp_audio_project_tpu_torch import oracle
+
+    cfg = pipe.config
+    cap = cfg.spectrum.analysis_limit
+    out = []
+    for i in range(xs.shape[0]):
+        y_want, fs_out = oracle.resample_oracle(xs[i], FS, cfg.src, "fast")
+        z_want = oracle.equalize_oracle(y_want, fs_out, cfg.eq)
+        spec = [oracle.spectrum_oracle(sig[:cap], rate, cfg.spectrum)[1]
+                for sig, rate in ((xs[i], FS), (y_want, fs_out),
+                                  (z_want, fs_out))]
+        out.append((y_want, z_want, spec))
+    return out
+
+
+def gate(tag: str, want: list, z, y, mags) -> None:
+    """z (and y when given) and the three spectra >= 60 dB vs the oracle."""
+    from dsp_audio_project_tpu_torch import oracle
+
+    worst = {"z": math.inf, "y": math.inf, "spectra": math.inf}
+    z = z.cpu().numpy()
+    y = None if y is None else y.cpu().numpy()
+    mags = [m.cpu().numpy() for m in mags]
+    for i, (y_want, z_want, spec) in enumerate(want):
+        worst["z"] = min(worst["z"], oracle.snr_db(z_want, z[i]))
+        if y is not None:
+            worst["y"] = min(worst["y"], oracle.snr_db(y_want, y[i]))
+        for s_want, m in zip(spec, mags):
+            worst["spectra"] = min(worst["spectra"],
+                                   oracle.snr_db(s_want, m[i]))
+    if y is None:
+        del worst["y"]
+    log(f"[{tag}] vs oracle, min snr over {len(want)} signals: "
+        + ", ".join(f"{k} {v:.1f} dB" for k, v in worst.items())
+        + " (gate 60)")
+    if not all(v >= 60.0 for v in worst.values()):
+        raise RuntimeError(f"[{tag}] output below the 60 dB oracle gate")
+
+
+def run_counted(fn):
+    """fn() with the launch counts set to 0 just before and read just after."""
     from dsp_audio_project_tpu_torch.kernels import (
         launch_counts, reset_launch_counts,
     )
 
-    cfg = pipe.config
-    n = xs.shape[-1]
-    n_out = cfg.src.output_length(n)
     reset_launch_counts()
-    z, (mx, my, mz) = pipe.forward_cat_spectra(x, FS)
+    out = fn()
     torch.cuda.synchronize()
-    counts = launch_counts()
-    log(f"[slice] launches during forward_cat_spectra: {counts}")
-    if not all(v > 0 for v in counts.values()):
-        raise RuntimeError(f"a kernel of the path did not launch: {counts}")
+    return out, launch_counts()
+
+
+def require(tag: str, counts: dict, names) -> None:
+    log(f"[{tag}] launches: {counts}")
+    missing = [n for n in names if counts[n] < 1]
+    if missing:
+        raise RuntimeError(f"[{tag}] kernels of the path did not launch: "
+                           f"{missing}")
+
+
+def phase_slice(pipe, x: torch.Tensor, want: list) -> dict:
+    cfg = pipe.config
+    n_out = cfg.src.output_length(x.shape[-1])
+    (z, mags), counts = run_counted(lambda: pipe.forward_cat_spectra(x, FS))
+    require("slice", counts, ("polyphase_fir_class_rect_cat", "eq_finish",
+                              "rfft_four_step_magnitude"))
     zf = z.reshape(BATCH, -1)[:, :n_out]
     if not bool(torch.isfinite(zf).all()):
         raise RuntimeError("non-finite output")
-    zf = zf.cpu().numpy()
-    mags = [m.cpu().numpy() for m in (mx, my, mz)]
-    cap = cfg.spectrum.analysis_limit
-    worst_z = worst_s = float("inf")
-    for i in range(BATCH):
-        y_want, fs_out = oracle.resample_oracle(xs[i], FS, cfg.src, "fast")
-        z_want = oracle.equalize_oracle(y_want, fs_out, cfg.eq)
-        worst_z = min(worst_z, oracle.snr_db(z_want, zf[i]))
-        for sig, rate, mag in ((xs[i], FS, mags[0][i]),
-                               (y_want, fs_out, mags[1][i]),
-                               (z_want, fs_out, mags[2][i])):
-            want = oracle.spectrum_oracle(sig[:cap], rate, cfg.spectrum)[1]
-            worst_s = min(worst_s, oracle.snr_db(want, mag))
-    log(f"[slice] z {tuple(z.shape)} vs oracle: min snr over {BATCH} signals "
-        f"{worst_z:.1f} dB (gate 60)")
-    log(f"[slice] spectra x/y/z vs oracle: min snr {worst_s:.1f} dB (gate 60)")
-    if not (worst_z >= 60.0 and worst_s >= 60.0):
-        raise RuntimeError("chain output below the 60 dB oracle gate")
+    gate("slice", want, zf, None, mags)
+    z_torch = pipe.forward_cat(x, FS, finish="torch")
+    torch.cuda.synchronize()
+    s = snr_db(z_torch, z)
+    log(f"[slice] z finish='kernel' vs finish='torch': snr {s:.1f} dB "
+        "(bound 120)")
+    if not s > 120.0:
+        raise RuntimeError("the K9 finish disagrees with the torch finish")
     return counts
 
 
+def phase_frames(pipe, x: torch.Tensor, want: list) -> dict:
+    needed = ("fir_frames_kernel", "eq_finish", "rfft_four_step_magnitude")
+    n_out = pipe.config.src.output_length(x.shape[-1])
+    out, counts = run_counted(lambda: pipe(x, FS, with_spectra=True))
+    require("frames", counts, needed)
+    if out.output.shape != (BATCH, n_out) or out.fs_out != 48000:
+        raise RuntimeError(f"pipe(x, fs): z {tuple(out.output.shape)}, "
+                           f"fs_out {out.fs_out}")
+    if not bool(torch.isfinite(out.output).all()):
+        raise RuntimeError("non-finite output")
+    gate("frames", want, out.output, out.resampled,
+         [out.spectra[k][1] for k in ("input", "resampled", "output")])
+    (zf, yf, mags), counts2 = run_counted(
+        lambda: pipe.forward_frames_spectra(x, FS))
+    require("frames", counts2, needed)
+    gate("frames", want, zf.reshape(BATCH, -1)[:, :n_out],
+         yf.reshape(BATCH, -1)[:, :n_out], mags)
+    return {k: counts[k] + counts2[k] for k in counts}
+
+
+def host_ms(fn, reps: int = REPS) -> tuple[float, float, float]:
+    """(median, min, max) host-clock ms until one call returns, the device
+    idle before it: what the host spends to enqueue a call."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times), min(times), max(times)
+
+
+def phase_profile(chains: dict, calls: int = 5) -> None:
+    """torch.profiler over ``calls`` calls of each chain (after one warm-up
+    step): device time per call by kernel, and the total."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for name, fn in chains.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=calls),
+                     acc_events=True) as prof:
+            for _ in range(calls + 1):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        rows = []
+        for evt in prof.key_averages():
+            us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+            # Device activity: device time and no CPU time; the profiler's
+            # own ProfilerStep span is not a kernel.
+            if (us > 0 and evt.self_cpu_time_total == 0
+                    and not evt.key.startswith("ProfilerStep")):
+                rows.append((us / calls, evt.count / calls, evt.key))
+        rows.sort(reverse=True)
+        total = sum(r[0] for r in rows)
+        log(f"[profile] {name}, batch {BATCH} x {SECONDS:.0f} s: device "
+            f"kernel time {total:.1f} us per call over {calls} calls")
+        for us, per_call, key in rows[:12]:
+            log(f"[profile]   {us:9.1f} us {100 * us / total:5.1f} % "
+                f"x{per_call:g}  {key[:90]}")
+
+
 def main() -> None:
+    profile_too = "--profile" in sys.argv[1:]
     kind, smi = phase_device()
     phase_build()
 
@@ -276,47 +564,90 @@ def main() -> None:
         src=pt.SRCConfig(L=160, M=147), eq=pt.EQConfig.from_gains(GAINS),
         kernels=pt.KernelConfig(src_fast=True, eq_fast=True),
     )
-    pipe = pt.AudioPipeline(cfg, device="cuda")
+    pipe = pt.AudioPipeline(cfg, device=DEVICE)
     n = int(SECONDS * FS)
     xs = make_batch(n)
-    x = torch.as_tensor(xs, device="cuda")
+    x = torch.as_tensor(xs, device=DEVICE)
+    small = x[:2, : FS // 4].contiguous()
     t0 = time.perf_counter()
     pt.tables_from_numpy(pipe, FS, pt.design_tables(cfg, FS))
     log(f"[setup] host design tables: {time.perf_counter() - t0:.2f} s")
 
     k1 = phase_k1(pipe, x)
     k2 = phase_k2()
-    counts = phase_slice(pipe, x, xs)
+    k3 = phase_k3(pipe, x, small)
+    k9 = phase_k9(pipe, k1, k3)
+    del k1["y0"], k1["inj"], k3["y"]
+    t0 = time.perf_counter()
+    want = oracle_outputs(pipe, xs)
+    log(f"[oracle] numpy oracle for {BATCH} signals: "
+        f"{time.perf_counter() - t0:.2f} s")
+    slice_counts = phase_slice(pipe, x, want)
+    frames_counts = phase_frames(pipe, x, want)
+    launches = {k: slice_counts[k] + frames_counts[k] for k in slice_counts}
 
-    chain_ms = time_ms(lambda: pipe.forward_cat_spectra(x, FS))
-    chain_b2b = back_to_back_ms(lambda: pipe.forward_cat_spectra(x, FS))
-    timings = {}
-    for name, k in (("k1", k1), ("k2", k2)):
-        timings[name] = (time_ms(k["kern"]), time_ms(k["plain"]))
+    chains = {
+        "pipe(x, fs, with_spectra=True)":
+            lambda: pipe(x, FS, with_spectra=True),
+        "forward_frames_spectra": lambda: pipe.forward_frames_spectra(x, FS),
+        "forward_cat_spectra": lambda: pipe.forward_cat_spectra(x, FS),
+    }
     log(f"[time] card: {smi}")
-    log(f"[time] chain forward_cat_spectra, batch {BATCH} x {SECONDS:.0f} s: "
-        f"{chain_ms:.4f} ms per call (median) -> {chain_ms / BATCH:.4f} ms "
-        f"per signal; back to back {chain_b2b:.4f} ms per call -> "
-        f"{chain_b2b / BATCH:.4f} ms per signal")
-    log(f"[time] k1 fir_cat batch {BATCH}: kernel {timings['k1'][0]:.4f} ms, "
-        f"plain {timings['k1'][1]:.4f} ms")
-    log(f"[time] k2 rfft ({FFT_ROWS}, {NFFT}): kernel {timings['k2'][0]:.4f} "
-        f"ms, plain {timings['k2'][1]:.4f} ms")
+    for name, fn in chains.items():
+        per_call = time_ms(fn)
+        b2b = back_to_back_ms(fn)
+        host = host_ms(fn)
+        log(f"[time] chain {name}, batch {BATCH} x {SECONDS:.0f} s: "
+            f"{per_call:.4f} ms per call (median) -> {per_call / BATCH:.4f} "
+            f"ms per signal; back to back {b2b:.4f} ms per call -> "
+            f"{b2b / BATCH:.4f} ms per signal; host {host[0]:.4f} ms per "
+            f"call (min {host[1]:.4f}, max {host[2]:.4f})")
+    finish = {"kernel": [], "torch": []}
+    for mode in ("kernel", "torch", "torch", "kernel"):
+        finish[mode].append(time_ms(
+            lambda: pipe.forward_cat_spectra(x, FS, finish=mode)))
+    log("[time] chain forward_cat_spectra by finish, in turns (kernel, "
+        f"torch, torch, kernel): kernel {finish['kernel']} ms, torch "
+        f"{finish['torch']} ms per call")
 
+    kernels = {"k1": k1, "k2": k2, "k3": k3, "k9": k9}
+    timings = {}
+    for tag, k in kernels.items():
+        timings[tag] = {"ms": time_ms(k["kern"]), "plain_ms": time_ms(k["plain"]),
+                        "library_ms": None if k["lib"] is None
+                        else time_ms(k["lib"])}
+        t = timings[tag]
+        lib = ("none" if t["library_ms"] is None
+               else f"{t['library_ms']:.4f} ms")
+        log(f"[time] {tag}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{k['bound'][0]:.4f} ms ({k['bound'][1]})")
+
+    if profile_too:
+        phase_profile(chains)
+
+    rows = (
+        ("k1", "polyphase_fir_class_rect_cat", "csrc/fir_cat.cu",
+         "dsp_audio_project_tpu/kernels/fir_class.py:731"),
+        ("k2", "rfft_four_step_magnitude", "csrc/rfft_four_step.cu",
+         "dsp_audio_project_tpu/kernels/rfft.py:125"),
+        ("k3", "fir_frames_kernel", "csrc/fir_cat.cu",
+         "dsp_audio_project_tpu/kernels/fir_class.py:928"),
+        ("k9", "eq_finish", "csrc/eq_finish.cu",
+         "dsp_audio_project_tpu/kernels/eq_finish.py:50"),
+    )
     record = {"kernels": [
-        {"name": "polyphase_fir_class_rect_cat", "route": "cuda",
-         "source": "dsp_audio_project_tpu_torch/csrc/fir_cat.cu",
-         "replaces": "dsp_audio_project_tpu/kernels/fir_class.py:731",
-         "launches": counts["polyphase_fir_class_rect_cat"],
-         "max_abs_err": k1["max_abs_err"],
-         "ms": timings["k1"][0], "plain_ms": timings["k1"][1]},
-        {"name": "rfft_four_step_magnitude", "route": "cuda",
-         "source": "dsp_audio_project_tpu_torch/csrc/rfft_four_step.cu",
-         "replaces": "dsp_audio_project_tpu/kernels/rfft.py:125",
-         "launches": counts["rfft_four_step_magnitude"],
-         "max_abs_err": k2["max_abs_err"],
-         "ms": timings["k2"][0], "plain_ms": timings["k2"][1]},
+        {"name": name, "route": "cuda",
+         "source": f"dsp_audio_project_tpu_torch/{src}", "replaces": replaces,
+         "launches": launches[name],
+         "max_abs_err": kernels[tag]["max_abs_err"],
+         "ms": timings[tag]["ms"], "plain_ms": timings[tag]["plain_ms"],
+         "bound_ms": kernels[tag]["bound"][0],
+         "bound_by": kernels[tag]["bound"][1],
+         "library_ms": timings[tag]["library_ms"]}
+        for tag, name, src, replaces in rows
     ]}
+    print(smi, flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -139,17 +139,36 @@ class SpectrumConfig:
 
 @dataclasses.dataclass(frozen=True)
 class KernelConfig:
-    """Precision flags of the fused SRC->EQ chain.
+    """Path selection and precision flags of the chain.
 
-    The JAX package uses them to pick bf16x3 matmuls on the TPU.  The port's
-    CUDA kernels accumulate in plain fp32 FMAs whatever the flags say (at
-    least as accurate as bf16x3); the flags are kept because the cat path's
-    semantic rule ``src_fast == eq_fast`` (one kernel precision serves both
-    folded stages) is part of the public contract.
+    ``fir_path`` / ``iir_path`` ('auto' | 'pallas' | 'jnp', the JAX
+    package's names): 'auto' lets ``AudioPipeline.forward`` take the fused
+    frames path where it applies; inside the flat forward 'auto' and 'jnp'
+    run ``resample`` / ``equalize``, and fir_path='pallas' runs the
+    experimental flat SRC entry point (E1, on the frames kernel).
+    iir_path='pallas' (the experimental Pallas block IIR, E2) is not ported
+    and raises.  ``iir_block`` / ``iir_unroll``: the flat EQ's block and
+    group length.
+
+    The JAX package uses ``eq_fast`` / ``src_fast`` to pick bf16x3 matmuls
+    on the TPU.  The port's CUDA kernels accumulate in plain fp32 FMAs
+    whatever the flags say (at least as accurate as bf16x3); the flags are
+    kept because the cat path's semantic rule ``src_fast == eq_fast`` (one
+    kernel precision serves both folded stages) is part of the public
+    contract.  The TPU tiling knobs (``fir_frame_tile``, ``interpret``) have
+    no counterpart.
     """
 
+    fir_path: str = "auto"           # 'auto' | 'pallas' | 'jnp'
+    iir_path: str = "auto"
+    iir_block: int = 8192            # block length of the flat EQ
+    iir_unroll: int = 128            # samples per group within a block
     eq_fast: bool = False
     src_fast: bool = False
+
+    def resolve(self, path: str) -> str:
+        p = getattr(self, f"{path}_path")
+        return "jnp" if p == "auto" else p
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,9 @@
-// K1: EQ-fused polyphase FIR ("cat" FIR) for Hopper, fp32 SIMT.
+// K1 (EQ-fused polyphase FIR, "cat" FIR) and the frames FIR (K3-K6, E1)
+// for Hopper, fp32 SIMT: one kernel body, two launchers.
 //
-// Replaces the TPU kernel dsp_audio_project_tpu/kernels/fir_class.py:
-// polyphase_fir_class_rect_cat (body _class_rect_cat_kernel).  It computes,
-// for batch row b and frame f < f_pad,
+// fir_cat_launch replaces the TPU kernel dsp_audio_project_tpu/kernels/
+// fir_class.py:polyphase_fir_class_rect_cat (body _class_rect_cat_kernel).
+// It computes, for batch row b and frame f < f_pad,
 //
 //     [y0 | inj][b, f, :] = sum_w x_pad[b, f*s + w] * G2[w, :]      (w < W)
 //
@@ -13,11 +14,22 @@
 // pre-rotated banks, DPAD packing and virtual-row rectangles exist only to
 // fit TPU lanes and VMEM; none of them is needed here.
 //
+// fir_frames_launch runs the same body with V = P (G instead of G2, no inj
+// columns, so the inj store is never reached): y[b, f, :] = x_pad[b, f*s :
+// f*s + W] @ G.  It replaces fir_class.py:polyphase_fir_class_rect_frames
+// (K3), polyphase_fir_class_frames (K4), polyphase_fir_class_flat (K6; the
+// row-major (F, P) frames are the flat signal), fir_shear.py:
+// polyphase_fir_shear_frames (K5) and experiments/fir.py:polyphase_fir
+// (E1): five TPU stagings of one function.  Strided window loads make any
+// stride s nothing special here, so the kernel has no s >= 8 limit; the
+// wrappers keep the TPU routes' ValueErrors so the contract matches.
+//
 // What bounds it on an H100, at the serving shape (L/M = 160/147: P = 160,
 // s = 147, W = 187, d = 10, batch 8 x 60 s, f_pad = 18432): about 4.7 G
-// multiply-adds against about 85 MB read and 100 MB written (data-sheet
-// planning figures, not measurements).  In fp32 SIMT the kernel is bound
-// by FMA issue; a tensor-core version would be bound by memory.
+// multiply-adds (4.4 G for the frames FIR) against about 85 MB read and
+// 100 MB written (data-sheet planning figures, not measurements).  In fp32
+// SIMT the kernel is bound by FMA issue; a tensor-core version would be
+// bound by memory.
 //
 // Design: a register-tiled SGEMM over the implicit window matrix
 // A[f, w] = x_pad[f*s + w] (never materialized).  A block owns BM = 128
@@ -159,6 +171,17 @@ int fir_cat_launch(const float* x, const float* g2, float* y0, float* inj,
     const dim3 grid((f_pad + BM - 1) / BM, (V + BN - 1) / BN, batch);
     fir_cat_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         x, g2, y0, inj, n, f_pad, W, V, P, s, pad_left);
+    return (int)cudaGetLastError();
+}
+
+// The frames FIR: the same body with V = P and no inj output.
+int fir_frames_launch(const float* x, const float* g, float* y, int batch,
+                      int n, int f_out, int W, int P, int s, int pad_left,
+                      void* stream)
+{
+    const dim3 grid((f_out + BM - 1) / BM, (P + BN - 1) / BN, batch);
+    fir_cat_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        x, g, y, nullptr, n, f_out, W, P, P, s, pad_left);
     return (int)cudaGetLastError();
 }
 

@@ -14,28 +14,37 @@ Every TPU kernel of the JAX package (each function that reaches
 |----|--------------------------|-------------|
 | K1 | kernels/fir_class.py:731 polyphase_fir_class_rect_cat | ported: fir_class.py + csrc/fir_cat.cu (CUDA) |
 | K2 | kernels/rfft.py:125 rfft_pallas_four_step | ported: rfft.py + csrc/rfft_four_step.cu (CUDA), magnitude form |
-| K3 | kernels/fir_class.py:928 polyphase_fir_class_rect_frames | to be ported (frames/dynamic forwards, streaming, sharded) |
-| K4 | kernels/fir_class.py:1042 polyphase_fir_class_frames | to be ported; may share K3's Hopper kernel |
-| K5 | kernels/fir_shear.py:167 polyphase_fir_shear_frames | to be ported; may share K3's Hopper kernel (test at s < 8) |
-| K6 | kernels/fir_class.py:312 polyphase_fir_class_flat | to be ported; may share K3's Hopper kernel (flat view) |
+| K3 | kernels/fir_class.py:928 polyphase_fir_class_rect_frames | ported: fir_class.py on the frames kernel, csrc/fir_cat.cu fir_frames_launch (CUDA) |
+| K4 | kernels/fir_class.py:1042 polyphase_fir_class_frames | ported: fir_class.py on the frames kernel (CUDA) |
+| K5 | kernels/fir_shear.py:167 polyphase_fir_shear_frames | ported: fir_shear.py on the frames kernel (CUDA) |
+| K6 | kernels/fir_class.py:312 polyphase_fir_class_flat | ported: fir_class.py on the frames kernel, flat view (CUDA) |
 | K7 | kernels/rfft.py:327 rfft_pallas_four_step_tall | to be ported (N 16384..524288) |
 | K8 | kernels/rfft.py:476 rfft_pallas_two_level | to be ported (N = 1048576) |
-| K9 | kernels/eq_finish.py:50 eq_finish_pallas | to be ported (EQ finish epilogue) |
-| E1 | kernels/experiments/fir.py:61 polyphase_fir | to be ported; may share K3's Hopper kernel |
-| E2a | kernels/experiments/iir.py:100 block_end_states | to be ported |
-| E2b | kernels/experiments/iir.py:134 block_apply | to be ported |
-| E3 | kernels/experiments/fir_dma.py:70 polyphase_fir_dma | to be ported; may share K3's Hopper kernel |
-| E4 | kernels/experiments/fir_splitbank.py:103 polyphase_fir_rect_splitbank | to be ported; may share K3's Hopper kernel |
-| E5 | kernels/experiments/fir_rowdma.py:89 polyphase_fir_rect_rowdma | to be ported; may share K3's Hopper kernel |
+| K9 | kernels/eq_finish.py:50 eq_finish_pallas | ported: eq_finish.py + csrc/eq_finish.cu (CUDA) |
+| E1 | kernels/experiments/fir.py:61 polyphase_fir | ported: fir_class.polyphase_fir on the frames kernel (CUDA) |
+| E2a | kernels/experiments/iir.py:100 block_end_states | to be ported (iir_path='pallas' raises) |
+| E2b | kernels/experiments/iir.py:134 block_apply | to be ported (iir_path='pallas' raises) |
+| E3 | kernels/experiments/fir_dma.py:70 polyphase_fir_dma | to be ported; may share the frames kernel |
+| E4 | kernels/experiments/fir_splitbank.py:103 polyphase_fir_rect_splitbank | to be ported; may share the frames kernel |
+| E5 | kernels/experiments/fir_rowdma.py:89 polyphase_fir_rect_rowdma | to be ported; may share the frames kernel |
 | E6 | kernels/experiments/rfft_butterfly.py:76 rfft_pallas | to be ported; may share K2/K7's Hopper kernels |
 | E7 | kernels/experiments/iir_seq.py:127 equalize_seq_flat | to be ported |
 
 Times on the card are in PERF.md.
 """
-from .fir_class import polyphase_fir_class_rect_cat
+from .eq_finish import eq_finish
+from .fir_class import (
+    class_supported,
+    fir_frames_kernel,
+    polyphase_fir_class_frames,
+    polyphase_fir_class_rect_cat,
+    polyphase_fir_class_rect_frames,
+)
+from .fir_shear import polyphase_fir_shear_frames
 from .rfft import rfft_four_step_magnitude
 
-KERNELS = (polyphase_fir_class_rect_cat, rfft_four_step_magnitude)
+KERNELS = (polyphase_fir_class_rect_cat, fir_frames_kernel, eq_finish,
+           rfft_four_step_magnitude)
 
 
 def launch_counts() -> dict:
@@ -46,3 +55,33 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+def fir_frames(x, plan, n_out, *, kernel: str = "auto", precision=None,
+               pad_frames: bool = False, num_frames=None, pad_left=None,
+               g=None):
+    """Resample (..., N) -> frames (..., F, P) through the frames kernel.
+
+    kernel: 'auto' | 'rect' | 'class' | 'shear', the JAX package's routes
+    (``dsp_audio_project_tpu/kernels/__init__.py:14``), each keeping its
+    frame count with ``pad_frames`` and its ValueErrors.  'auto' takes
+    'rect' where ``class_supported`` holds, else 'shear' (which raises for
+    s < 8, as on the TPU).  All three launch the one frames kernel.  The
+    JAX package's ``DSP_FIR_KERNEL`` override is not carried: it picks
+    among TPU stagings that are one kernel here.  ``g``: the plan's G on
+    x's device (cached from the plan when omitted).
+    """
+    table = {
+        "rect": polyphase_fir_class_rect_frames,
+        "class": polyphase_fir_class_frames,
+        "shear": polyphase_fir_shear_frames,
+    }
+    if kernel == "auto":
+        kernel = "rect" if class_supported(plan) else "shear"
+    if kernel not in table:
+        raise ValueError(f"unknown FIR kernel {kernel!r}; expected "
+                         f"'auto' or one of {sorted(table)}")
+    return table[kernel](
+        x, plan, n_out, precision=precision, pad_frames=pad_frames,
+        num_frames=num_frames, pad_left=pad_left, g=g,
+    )

@@ -59,6 +59,37 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
+def _nvcc_cmd(nvcc: str, name: str, out: pathlib.Path) -> list:
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def build(names) -> None:
+    """Compile every missing ``csrc/<name>.cu`` library, one ``nvcc`` per
+    source, all started together; raise if any fails."""
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in todo:
+        so = library_path(name)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        procs.append((name, so, tmp, subprocess.Popen(
+            _nvcc_cmd(nvcc, name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, so, tmp, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu (exit "
+                          f"{proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str, launchers: dict) -> ctypes.CDLL:
     """The kernel library built from ``csrc/<name>.cu`` (built if missing).
 
@@ -68,20 +99,8 @@ def load(name: str, launchers: dict) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is not None:
         return lib
-    so = library_path(name)
-    if not so.exists():
-        nvcc = find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {name}.cu (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    build([name])
+    lib = ctypes.CDLL(str(library_path(name)))
     lib.kernel_error_string.argtypes = [ctypes.c_int]
     lib.kernel_error_string.restype = ctypes.c_char_p
     for fn_name, argtypes in launchers.items():

@@ -1,4 +1,5 @@
-"""K1: the EQ-fused polyphase FIR ("cat" FIR) — CUDA kernel, wrapper, plain version.
+"""K1 (the EQ-fused "cat" FIR) and the frames FIR (K3, K4, K6, E1): wrappers,
+plain versions and the class predicates, over one CUDA kernel body.
 
 The fused chain's first EQ step is a per-frame product with frame-independent
 weights, frames @ [group_fir^T | group_in], so by distributivity it folds
@@ -19,28 +20,63 @@ class-major packing, and G2 is one (W, P+d) matrix instead of 128 rotated
 banks.  The frame grid is the same (F_pad = Kp*128, Kp a multiple of 8), so
 y0 and the EQ's block count match the JAX package exactly.
 
+The frames FIR computes y frames = windows @ G, the same body with V = P
+(``fir_frames_kernel``, launcher ``fir_frames_launch``).  The JAX package
+stages that one function five ways for the TPU; the port keeps each entry
+point and its contract (keywords, frame counts, ValueErrors) as a thin
+wrapper over the one kernel:
+
+* K3 ``polyphase_fir_class_rect_frames`` (``fir_class.py:928``) and K4
+  ``polyphase_fir_class_frames`` (``:1042``): F_pad = Kp*128 frames with
+  ``pad_frames``.  ``rect_supported`` is ``class_supported`` here: the
+  rectangle is a VMEM limit that the CUDA kernel does not have;
+* K6 ``polyphase_fir_class_flat`` (``:312``): the flat signal, which on a
+  row-major device is the (F, P) frames viewed flat;
+* E1 ``polyphase_fir`` (``experiments/fir.py:61``): the flat SRC cropped
+  to n_out;
+* K5 ``polyphase_fir_shear_frames`` lives in fir_shear.py.
+
 Precision: the kernel accumulates in fp32 FMAs, at least as accurate as the
-TPU's bf16x3 "fast" mode, so it serves src_fast=True and False alike.  The
-bf16x3 / 3xTF32 tensor-core version is ROADMAP work.
+TPU's bf16x3 "fast" mode, so it serves src_fast=True and False alike; the
+wrappers take ``precision`` and ignore it.  The bf16x3 / 3xTF32 tensor-core
+version is ROADMAP work.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.src import PolyphasePlan
 from . import _build
+
+if TYPE_CHECKING:
+    from ..ops.src import PolyphasePlan
 
 NUM_CLASSES = 128   # frame-grid granule of the JAX kernel (F_pad = Kp * 128)
 
 _LAUNCHERS = {
     "fir_cat_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
+    "fir_frames_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
 }
 _g2_cache: dict = {}
+_g_cache: dict = {}
+
+
+def plan_operator(plan: PolyphasePlan, device) -> torch.Tensor:
+    """The plan's G as a float32 (W, P) tensor on ``device`` (cached)."""
+    key = (id(plan), str(torch.device(device)))
+    g = _g_cache.get(key)
+    if g is None:
+        g = torch.as_tensor(np.asarray(plan.G, dtype=np.float32),
+                            device=device)
+        _g_cache[key] = g
+    return g
 
 
 def cat_operator(G: np.ndarray, w_cat: np.ndarray) -> np.ndarray:
@@ -73,19 +109,50 @@ def frame_grid(n_out: int, P: int, num_frames: int | None = None) -> int:
     return Kp * NUM_CLASSES
 
 
+def fir_frames_plain(x: torch.Tensor, g: torch.Tensor, s: int, f_pad: int,
+                     pad_left: int) -> torch.Tensor:
+    """Plain torch version of the frames kernel: unfold windows @ G in fp32.
+
+    ``x`` (B, n) float32, ``g`` (W, V) float32, ``pad_left`` >= 0.  Returns
+    (B, f_pad, V): frame f is x_pad[f*s : f*s + W] @ g.
+    """
+    W = g.shape[0]
+    n = x.shape[-1]
+    if f_pad == 0:
+        return x.new_zeros((x.shape[0], 0, g.shape[1]))
+    total = (f_pad - 1) * s + W
+    xp = F.pad(x, (pad_left, max(0, total - pad_left - n)))[..., :total]
+    return xp.unfold(-1, W, s) @ g
+
+
 def fir_cat_plain(x: torch.Tensor, g2: torch.Tensor, P: int, s: int,
                   f_pad: int, pad_left: int):
-    """Plain torch version of the kernel: unfold windows @ G2 in fp32.
+    """Plain torch version of K1: the frames product with G2, split.
 
     ``x`` (B, n) float32, ``g2`` (W, P+d) float32.  Returns (y0, inj) with
     shapes (B, f_pad, P) and (B, f_pad, d).
     """
-    W = g2.shape[0]
-    n = x.shape[-1]
-    total = (f_pad - 1) * s + W
-    xp = F.pad(x, (pad_left, max(0, total - pad_left - n)))[..., :total]
-    cat = xp.unfold(-1, W, s) @ g2            # (B, f_pad, P+d)
+    cat = fir_frames_plain(x, g2, s, f_pad, pad_left)     # (B, f_pad, P+d)
     return cat[..., :P].contiguous(), cat[..., P:].contiguous()
+
+
+def _check_signal(x) -> None:
+    if not isinstance(x, torch.Tensor) or x.dtype != torch.float32:
+        raise TypeError(f"x must be a float32 tensor, got {getattr(x, 'dtype', type(x))}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    if x.ndim < 1 or x.shape[-1] == 0:
+        raise ValueError(f"x must be (..., n) with n > 0, got {tuple(x.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+
+
+def _rows(x: torch.Tensor, pad_left: int):
+    """(B, n) rows of x and a pad_left >= 0 (a negative one drops leads)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if pad_left < 0:
+        return x2[:, -pad_left:].contiguous(), 0
+    return x2, pad_left
 
 
 def _launch(x, g2, y0, inj, n, f_pad, W, V, P, s, pad_left):
@@ -123,21 +190,11 @@ def polyphase_fir_class_rect_cat(
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel;
     anything else raises.
     """
-    if not isinstance(x, torch.Tensor) or x.dtype != torch.float32:
-        raise TypeError(f"x must be a float32 tensor, got {getattr(x, 'dtype', type(x))}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    if x.ndim < 1 or x.shape[-1] == 0:
-        raise ValueError(f"x must be (..., n) with n > 0, got {tuple(x.shape)}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device}")
+    _check_signal(x)
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
     if pad_left is None:
         pad_left = max(0, -plan.lo)
-    if pad_left < 0:
-        x2 = x2[:, -pad_left:].contiguous()
-        pad_left = 0
+    x2, pad_left = _rows(x, pad_left)
     n = x2.shape[-1]
     P, s, W = plan.P, plan.s, plan.W
     f_pad = frame_grid(n_out, P, num_frames)
@@ -167,3 +224,188 @@ def polyphase_fir_class_rect_cat(
 
 
 polyphase_fir_class_rect_cat.launches = 0
+
+
+# ---- the frames FIR (K3, K4, K6, E1; K5 in fir_shear.py) -------------------
+
+
+def _launch_frames(x, g, y, n, f_out, W, P, s, pad_left):
+    lib = _build.load("fir_cat", _LAUNCHERS)
+    with torch.cuda.device(x.device):
+        err = lib.fir_frames_launch(
+            x.data_ptr(), g.data_ptr(), y.data_ptr(),
+            x.shape[0], n, f_out, W, P, s, pad_left,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _build.check(lib, err, "fir_frames_launch")
+
+
+def fir_frames_kernel(x: torch.Tensor, g: torch.Tensor, s: int,
+                      num_frames: int, pad_left: int) -> torch.Tensor:
+    """y (..., num_frames, P): frame f = x_pad[f*s : f*s + W] @ g.
+
+    The wrapper of the frames kernel that every frames entry point calls.
+    ``x`` (..., n) float32 contiguous; ``g`` (W, P) float32 contiguous on
+    x's device; x_pad = zeros(pad_left) ++ x ++ zeros (a negative
+    ``pad_left`` drops that many leading samples instead).  A CPU tensor
+    runs the plain version; a CUDA tensor launches the kernel; anything
+    else raises.
+    """
+    _check_signal(x)
+    if (not isinstance(g, torch.Tensor) or g.dtype != torch.float32
+            or g.device != x.device or g.ndim != 2 or not g.is_contiguous()):
+        raise ValueError(
+            f"g must be a contiguous float32 (W, P) tensor on {x.device}, "
+            f"got {getattr(g, 'dtype', type(g))} {tuple(getattr(g, 'shape', ()))}"
+        )
+    if s < 1 or num_frames < 0:
+        raise ValueError(f"need s >= 1 and num_frames >= 0, got {s}, {num_frames}")
+    lead = x.shape[:-1]
+    x2, pad_left = _rows(x, pad_left)
+    W, P = g.shape
+    if x.device.type == "cpu":
+        y = fir_frames_plain(x2, g, s, num_frames, pad_left)
+    else:
+        B = x2.shape[0]
+        y = torch.empty((B, num_frames, P), dtype=torch.float32,
+                        device=x.device)
+        if B and num_frames:
+            _launch_frames(x2, g, y, x2.shape[-1], num_frames, W, P, s,
+                           pad_left)
+            fir_frames_kernel.launches += 1
+    return y.reshape(lead + (num_frames, P))
+
+
+fir_frames_kernel.launches = 0
+
+
+def class_supported(plan: PolyphasePlan) -> bool:
+    """The JAX class kernels' envelope (wide stride, one super-group)."""
+    return plan.s >= 8 and plan.W <= 128 * plan.s
+
+
+def rect_supported(plan: PolyphasePlan) -> bool:
+    """``class_supported``: the JAX rect kernel's extra row-rectangle test
+    is a VMEM fit that the CUDA kernel does not have."""
+    return class_supported(plan)
+
+
+def class_flat_supported(plan: PolyphasePlan) -> bool:
+    """The JAX flat class kernel's envelope: every class's 256-wide MXU
+    result must stay lane-aligned in its block (kept for the contract)."""
+    P = plan.P
+    if not class_supported(plan):
+        return False
+    if P == 128:
+        return True
+    return P % 16 == 0 and 128 < P <= 128 + math.gcd(P, 128)
+
+
+def _check_class(plan: PolyphasePlan) -> None:
+    if plan.s < 8:
+        raise ValueError("class kernels target the wide-stride regime s>=8")
+    if plan.W > 128 * plan.s:
+        raise ValueError(f"frame width {plan.W} exceeds one super-group "
+                         f"{128 * plan.s}")
+
+
+def _frames(x, plan, f_out, pad_left, g):
+    """The frames kernel for a plan: f_out frames, default pad_left/G."""
+    if pad_left is None:
+        pad_left = max(0, -plan.lo)
+    if g is None:
+        g = plan_operator(plan, x.device)
+    return fir_frames_kernel(x, g, plan.s, f_out, pad_left)
+
+
+def polyphase_fir_class_rect_frames(
+    x: torch.Tensor,
+    plan: PolyphasePlan,
+    n_out: int,
+    *,
+    precision=None,
+    pad_frames: bool = False,
+    num_frames: int | None = None,
+    pad_left: int | None = None,
+    g: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Resample (..., N) -> frames (..., ceil(n_out/P), P) (K3).
+
+    frames.reshape(..., -1)[..., :n_out] is ops/src.resample's flat output.
+    ``pad_frames=True`` returns F_pad = Kp*128 frames (``frame_grid``; the
+    tail frames hold convolution of the zero padding).  ``num_frames``
+    overrides ceil(n_out/P) and ``pad_left`` the zero extension -plan.lo,
+    for shards whose input carries its halo.  ``g``: the plan's G as a
+    float32 tensor on x's device (cached from the plan when omitted).
+    Requires s >= 8 and W <= 128*s, as the JAX kernel does.
+    """
+    _check_class(plan)
+    if num_frames is None:
+        num_frames = -(-n_out // plan.P)
+    f_out = frame_grid(n_out, plan.P, num_frames) if pad_frames else num_frames
+    return _frames(x, plan, f_out, pad_left, g)
+
+
+def polyphase_fir_class_frames(
+    x: torch.Tensor,
+    plan: PolyphasePlan,
+    n_out: int,
+    *,
+    precision=None,
+    pad_frames: bool = False,
+    num_frames: int | None = None,
+    pad_left: int | None = None,
+    g: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """K4: the same contract and output as K3 (the TPU's BlockSpec staging
+    of the same function); see ``polyphase_fir_class_rect_frames``."""
+    return polyphase_fir_class_rect_frames(
+        x, plan, n_out, precision=precision, pad_frames=pad_frames,
+        num_frames=num_frames, pad_left=pad_left, g=g,
+    )
+
+
+def polyphase_fir_class_flat(
+    x: torch.Tensor,
+    plan: PolyphasePlan,
+    n_out: int,
+    *,
+    precision=None,
+    pad_out: bool = False,
+    num_frames: int | None = None,
+    pad_left: int | None = None,
+    g: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Resample (..., N) -> flat (..., n_out) (K6).
+
+    The frames kernel's (F, P) output viewed flat: the same samples as
+    K3's frames.reshape(..., -1)[..., :n_out].  ``pad_out=True`` returns
+    the whole (..., F_pad*P) buffer.  Requires ``class_flat_supported``.
+    """
+    if not class_flat_supported(plan):
+        raise ValueError("plan geometry unsupported by the flat class kernel")
+    P = plan.P
+    f_pad = frame_grid(n_out, P, num_frames)
+    f_out = f_pad if pad_out else min(f_pad, -(-n_out // P))
+    y = _frames(x, plan, f_out, pad_left, g)
+    flat = y.reshape(y.shape[:-2] + (f_out * P,))
+    return flat if pad_out else flat[..., :n_out]
+
+
+def polyphase_fir(
+    x: torch.Tensor,
+    plan: PolyphasePlan,
+    n_out: int,
+    *,
+    frame_tile: int | None = None,
+    g: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Resample (..., N) -> (..., n_out) (E1, ``fir_path='pallas'``).
+
+    ceil(n_out/P) frames through the frames kernel, viewed flat and cropped
+    to n_out.  ``frame_tile`` is the TPU kernel's frame tile; it is
+    accepted and ignored.
+    """
+    f_out = -(-n_out // plan.P)
+    y = _frames(x, plan, f_out, None, g)
+    return y.reshape(y.shape[:-2] + (f_out * plan.P,))[..., :n_out]

@@ -1,37 +1,49 @@
-"""The serving pipeline: x --SRC--> y --EQ--> z, plus spectra of x, y and z.
+"""The pipeline: x --SRC--> y --EQ--> z, plus spectra of x, y and z.
 
-Counterpart of the EQ-fused "cat" part of ``dsp_audio_project_tpu/models/
-chain.py`` (``cat_supported``, ``_cat_pieces``, ``_forward_cat``,
-``_forward_cat_spectra``), with the forwards public.  One render is:
+Counterpart of ``dsp_audio_project_tpu/models/chain.py`` with the forwards
+public.  ``AudioPipeline.forward`` (``pipe(x, fs)``) is the JAX
+``__call__``: it takes the fused frames path where ``frames_supported``
+holds and the flat forward otherwise, and returns ``PipelineOutputs``.
+The forwards and the kernels they run:
 
-1. K1 (kernels/fir_class.py): SRC with the EQ's first product folded into
-   the operator, emitting the EQ's zero-state output y0 and the per-frame
-   state injections; the resampled signal never exists on the device;
-2. the EQ finish (ops/eq.equalize_frames_cat): block state solve, carry,
-   readout and clip, plus the few output rows the z spectrum needs;
-3. the y spectrum's rows recomputed from x (ops/src.resample_rows);
-4. K2 (kernels/rfft.py): |rfft| of the three 2048-point Hann windows of
-   x, y and z, stacked into one launch.
+* frames (``forward_frames[_flat|_spectra]``): the frames FIR kernel (K3,
+  ``kernels.fir_frames``) emits (F, P) frames; ``ops/eq.equalize_frames``
+  runs the EQ on them at unroll P, its readout and clip in K9;
+* cat (``forward_cat[_spectra]``): K1 emits the EQ's zero-state output y0
+  and the state injections directly (the resampled signal never exists),
+  then ``ops/eq.equalize_frames_cat`` solves the states and K9 finishes;
+* flat (``forward_flat[_spectra]``): the flat SRC (K6, the frames kernel
+  viewed flat), then ``ops/eq.equalize`` at block ``iir_block``;
+* ``_forward`` / ``forward_spectra``: ``ops/src.resample`` (the frames
+  kernel) or, with fir_path='pallas', E1, then ``equalize``;
+* spectra: K2 (``kernels/rfft.py``) on 2048-point Hann windows.
 
-The design tables (the polyphase operator G, G2 = G @ w_cat, the EQ block
-operators and the carry weights) are designed on the host in float64 for
-the input rate a call brings, and live on the module as float32 buffers;
-``tables_from_numpy`` installs tables made elsewhere (the JAX package's,
-in the tests) in their place.
+The design tables of the cat and frames paths (the polyphase operator G,
+G2 = G @ w_cat, the EQ block operators at block 128*P / unroll P and the
+carry weights) are designed on the host in float64 for the input rate a
+call brings, and live on the module as float32 buffers;
+``tables_from_numpy`` installs tables made elsewhere (the JAX package's, in
+the tests) in their place.  The flat paths design their own operators at
+their own block and unroll (ops/eq.block_tables).
 """
 from __future__ import annotations
 
+import dataclasses
 import types
-from typing import Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..config import PipelineConfig
+from ..kernels import fir_frames
 from ..kernels.fir_class import (
     cat_operator,
+    class_flat_supported,
     frame_grid,
+    polyphase_fir,
+    polyphase_fir_class_flat,
     polyphase_fir_class_rect_cat,
 )
 from ..ops.eq import (
@@ -39,24 +51,39 @@ from ..ops.eq import (
     _CARRY_ALLPAIRS_MAX,
     _carry_weights,
     eq_cat_weights,
+    equalize,
+    equalize_frames,
     equalize_frames_cat,
+    frames_weights,
     make_block_operators,
 )
 from ..ops.spectrum import (
+    magnitude_spectrum,
     spectra_mag_stacked,
     spectrum_rows_needed,
     spectrum_window,
+    spectrum_window_frames,
     spectrum_window_rows,
 )
-from ..ops.src import make_plan, resample_rows
+from ..ops.src import make_plan, resample, resample_rows
 
 GROUPS_PER_BLOCK = 128   # EQ groups (frames) per block: block = 128 * P
 HOST_TABLES = ("G", "group_fir", "group_in") + EQ_TABLES
 
 
+@dataclasses.dataclass(frozen=True)
+class PipelineOutputs:
+    """Results of one pipeline invocation (tensors on the module's device)."""
+
+    output: torch.Tensor         # z[n] at the output rate
+    resampled: torch.Tensor      # y[n], the SRC intermediate
+    fs_out: int
+    spectra: Optional[Dict[str, Tuple[np.ndarray, torch.Tensor]]] = None
+
+
 def design_tables(config: PipelineConfig, fs: int) -> dict:
-    """The cat chain's host design tables at input rate ``fs`` (numpy, as
-    designed): G and the EQ block operators it needs."""
+    """The cat and frames paths' host design tables at input rate ``fs``
+    (numpy, as designed): G and the EQ block operators they need."""
     plan = make_plan(config.src.L, config.src.M, config.src.taps_rule_factor)
     fs_out = config.src.output_rate(fs)
     bands = config.eq.active_bands(fs_out)
@@ -72,17 +99,25 @@ class AudioPipeline(nn.Module):
 
     Usage:
         pipe = AudioPipeline(PipelineConfig(src=SRCConfig(L=160, M=147),
-                                            eq=EQConfig.from_gains({"Bass": 6})),
-                             device="cuda")
+                                            eq=EQConfig.from_gains({"Bass": 6})))
+        out = pipe(x, 44100, with_spectra=True)   # PipelineOutputs
         z_frames, (mag_x, mag_y, mag_z) = pipe.forward_cat_spectra(x, 44100)
 
-    ``x`` is (..., N) float32 (a tensor or an array; it is moved to the
-    module's device).  z flat = z_frames.reshape(..., -1)[..., :output_length(N)].
-    On a CUDA device both kernels run; on the CPU their plain versions do.
+    ``device`` defaults to "cuda" and the constructor raises when no CUDA
+    device is visible; pass device="cpu" to run the kernels' plain versions
+    on the CPU.  ``x`` is (..., N) float32 (a tensor or an array; it is
+    moved to the module's device).
     """
 
     def __init__(self, config: PipelineConfig = PipelineConfig(), device=None):
         super().__init__()
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "AudioPipeline runs on the GPU by default and no CUDA "
+                    "device is visible; pass device='cpu' to run the plain "
+                    "versions of the kernels on the CPU")
+            device = "cuda"
         self.config = config
         self.register_buffer("_anchor", torch.empty(0, device=device),
                              persistent=False)
@@ -96,6 +131,163 @@ class AudioPipeline(nn.Module):
 
     def output_rate(self, fs: int) -> int:
         return self.config.src.output_rate(fs)
+
+    def _plan(self):
+        src = self.config.src
+        return make_plan(src.L, src.M, src.taps_rule_factor)
+
+    def _input(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32,
+                               device=self.device).contiguous()
+
+    # ---- the module's call: the JAX package's __call__ -------------------
+
+    def forward(self, x, fs: int, *, with_spectra: bool = False
+                ) -> PipelineOutputs:
+        """(x, fs) -> PipelineOutputs with flat z and y, as the JAX
+        ``AudioPipeline.__call__``.  Takes the fused frames path where
+        ``frames_supported`` holds and both kernel paths are 'auto' (on
+        either device), else the flat forward ``_forward``.  ``spectra``
+        maps "input", "resampled", "output" to (host freqs, |X|)."""
+        x = self._input(x)
+        fs_out = self.output_rate(fs)
+        kc = self.config.kernels
+        if (kc.fir_path == "auto" and kc.iir_path == "auto"
+                and self.frames_supported(x.shape[-1])):
+            z, y = self.forward_frames_flat(x, fs)
+        else:
+            z, y = self._forward(x, fs)
+        spectra = None
+        if with_spectra:
+            scfg = self.config.spectrum
+            spectra = {
+                "input": magnitude_spectrum(x, fs, scfg),
+                "resampled": magnitude_spectrum(y, fs_out, scfg),
+                "output": magnitude_spectrum(z, fs_out, scfg),
+            }
+        return PipelineOutputs(output=z, resampled=y, fs_out=fs_out,
+                               spectra=spectra)
+
+    # ---- flat forward: resample (or E1) -> equalize ----------------------
+
+    def _forward(self, x, fs: int):
+        """(x, fs) -> (z, y) flat: ``_run_src`` then ``_run_eq``."""
+        y, fs_out = self._run_src(self._input(x), fs)
+        return self._run_eq(y, fs_out), y
+
+    def _run_src(self, x: torch.Tensor, fs: int):
+        cfg = self.config
+        if cfg.src.bypass or cfg.kernels.resolve("fir") == "jnp":
+            return resample(x, fs, cfg.src)
+        y = polyphase_fir(x, self._plan(), cfg.src.output_length(x.shape[-1]))
+        return y, cfg.src.output_rate(fs)
+
+    def _run_eq(self, y: torch.Tensor, fs_out: int) -> torch.Tensor:
+        cfg = self.config
+        kc = cfg.kernels
+        if kc.resolve("iir") != "jnp":
+            raise NotImplementedError(
+                f"iir_path={kc.iir_path!r}: the experimental Pallas block "
+                "IIR (E2, kernels/experiments/iir.py) is not ported yet "
+                "(ROADMAP Queue 2)")
+        return equalize(y, fs_out, cfg.eq, block=kc.iir_block,
+                        unroll=kc.iir_unroll, fast=kc.eq_fast)
+
+    def forward_spectra(self, x, fs: int):
+        """Flat full chain: (x, fs) -> (z, y, (mag_x, mag_y, mag_z))."""
+        x = self._input(x)
+        z, y = self._forward(x, fs)
+        return z, y, self._spectra_flat(x, y, z)
+
+    def _spectra_flat(self, x, y, z):
+        scfg = self.config.spectrum
+        return tuple(spectra_mag_stacked([
+            spectrum_window(x, scfg), spectrum_window(y, scfg),
+            spectrum_window(z, scfg),
+        ]))
+
+    # ---- fused frame-major path ------------------------------------------
+
+    def frames_supported(self, n: int) -> bool:
+        """True when the fused frame-major path covers this input (the JAX
+        package's envelope: s >= 8 and a signal at least as long as the
+        filter at the upsampled rate)."""
+        cfg = self.config
+        if cfg.src.bypass:
+            return False
+        return self._plan().s >= 8 and n * cfg.src.L >= cfg.src.num_taps
+
+    def forward_frames(self, x, fs: int):
+        """(x, fs) -> (z_frames, y_frames), each (..., F_pad, P).
+
+        z/y flat = frames.reshape(..., -1)[..., :output_length(n)].
+        """
+        cfg = self.config
+        x = self._input(x)
+        plan = self._plan()
+        n_out = cfg.src.output_length(x.shape[-1])
+        fs_out = cfg.src.output_rate(fs)
+        tables, G = None, None
+        if not cfg.eq.bypass and cfg.eq.active_bands(fs_out):
+            tables = self._tables(fs, frame_grid(n_out, plan.P)
+                                  // GROUPS_PER_BLOCK)
+            G = self.G
+        y_frames = fir_frames(x, plan, n_out, pad_frames=True, g=G)
+        z_frames = equalize_frames(y_frames, fs_out, cfg.eq,
+                                   groups_per_block=GROUPS_PER_BLOCK,
+                                   tables=tables)
+        return z_frames, y_frames
+
+    def forward_frames_flat(self, x, fs: int):
+        """The frames path with the flat crop: (x, fs) -> (z, y)."""
+        x = self._input(x)
+        zf, yf = self.forward_frames(x, fs)
+        n_out = self.config.src.output_length(x.shape[-1])
+        z = zf.reshape(zf.shape[:-2] + (-1,))[..., :n_out]
+        y = yf.reshape(yf.shape[:-2] + (-1,))[..., :n_out]
+        return z, y
+
+    def forward_frames_spectra(self, x, fs: int):
+        """(x, fs) -> (z_frames, y_frames, (mag_x, mag_y, mag_z)); the three
+        spectra run as one K2 launch."""
+        x = self._input(x)
+        zf, yf = self.forward_frames(x, fs)
+        n_out = self.config.src.output_length(x.shape[-1])
+        scfg = self.config.spectrum
+        mx, my, mz = spectra_mag_stacked([
+            spectrum_window(x, scfg),
+            spectrum_window_frames(yf, n_out, scfg),
+            spectrum_window_frames(zf, n_out, scfg),
+        ])
+        return zf, yf, (mx, my, mz)
+
+    # ---- flat 128-lane path (K6) -----------------------------------------
+
+    def flat_supported(self, n: int) -> bool:
+        """True when the flat class-FIR + flat EQ path covers this input."""
+        cfg = self.config
+        if cfg.src.bypass:
+            return False
+        return (class_flat_supported(self._plan())
+                and n * cfg.src.L >= cfg.src.num_taps)
+
+    def forward_flat(self, x, fs: int):
+        """(x, fs) -> (z, y): the flat SRC (K6) then the flat EQ; true
+        (unpadded) outputs."""
+        cfg = self.config
+        x = self._input(x)
+        n_out = cfg.src.output_length(x.shape[-1])
+        y = polyphase_fir_class_flat(x, self._plan(), n_out,
+                                     pad_out=True)[..., :n_out]
+        return self._run_eq(y, cfg.src.output_rate(fs)), y
+
+    def forward_flat_spectra(self, x, fs: int):
+        """(x, fs) -> (z, y, (mag_x, mag_y, mag_z)) on the flat path."""
+        x = self._input(x)
+        z, y = self.forward_flat(x, fs)
+        return z, y, self._spectra_flat(x, y, z)
+
+    # ---- EQ-fused cat path -----------------------------------------------
 
     def cat_supported(self, n: int, fs: int) -> bool:
         """True when the EQ-fused cat path covers this (config, input).
@@ -116,17 +308,71 @@ class AudioPipeline(nn.Module):
             return False
         return bool(cfg.eq.active_bands(cfg.src.output_rate(fs)))
 
-    # ---- design tables as buffers ---------------------------------------
+    def _cat_pieces(self, x, fs: int):
+        """Shared front end: (x, (y0, inj), plan, n_out, fs_out, tables)."""
+        cfg = self.config
+        x = self._input(x)
+        n = x.shape[-1]
+        if not self.cat_supported(n, fs):
+            raise ValueError(
+                f"the cat path does not cover this config/input (n={n}, "
+                f"fs={fs}); see cat_supported"
+            )
+        plan = self._plan()
+        n_out = cfg.src.output_length(n)
+        fs_out = cfg.src.output_rate(fs)
+        tables = self._tables(fs, frame_grid(n_out, plan.P) // GROUPS_PER_BLOCK)
+        pair = polyphase_fir_class_rect_cat(x, plan, n_out, None, g2=self.g2)
+        return x, pair, plan, n_out, fs_out, tables
+
+    def forward_cat(self, x, fs: int, *, finish: str = "auto") -> torch.Tensor:
+        """(x, fs) -> z_frames (..., F_pad, P) through the EQ-fused chain.
+
+        ``finish`` as in ``ops/eq.equalize_frames_cat`` ('auto' = K9)."""
+        cfg = self.config
+        _, (y0, inj), plan, _, fs_out, tables = self._cat_pieces(x, fs)
+        return equalize_frames_cat(
+            y0, inj, fs_out, cfg.eq, unroll=plan.P,
+            groups_per_block=GROUPS_PER_BLOCK, tables=tables, finish=finish,
+        )
+
+    def forward_cat_spectra(self, x, fs: int, *, finish: str = "auto"):
+        """(x, fs) -> (z_frames, (mag_x, mag_y, mag_z)): the full render.
+
+        The y spectrum's ~13 frame rows are recomputed from x
+        (resample_rows); the z rows come out of the EQ finish as a side
+        tensor.  Frequency axes are host arrays:
+        ops.spectrum.spectrum_freqs(n, fs) for x and
+        spectrum_freqs(output_length(n), output_rate(fs)) for y and z.
+        """
+        cfg = self.config
+        scfg = cfg.spectrum
+        x, (y0, inj), plan, n_out, fs_out, tables = self._cat_pieces(x, fs)
+        r0, r1 = spectrum_rows_needed(n_out, plan.P, scfg)
+        z, z_rows = equalize_frames_cat(
+            y0, inj, fs_out, cfg.eq, unroll=plan.P,
+            groups_per_block=GROUPS_PER_BLOCK, rows=(r0, r1), tables=tables,
+            finish=finish,
+        )
+        y_rows = resample_rows(x, plan, r0, r1, self.G)
+        mx, my, mz = spectra_mag_stacked([
+            spectrum_window(x, scfg),
+            spectrum_window_rows(y_rows, r0, n_out, scfg),
+            spectrum_window_rows(z_rows, r0, n_out, scfg),
+        ])
+        return z, (mx, my, mz)
+
+    # ---- design tables as buffers ----------------------------------------
 
     def _install_tables(self, fs: int, tables: Mapping[str, np.ndarray]):
         """Install host tables for input rate ``fs`` as float32 buffers (see
-        ``tables_from_numpy``); G2 is composed here, in float64."""
+        ``tables_from_numpy``); G2 and the frames weights are composed
+        here, in float64."""
         missing = [k for k in HOST_TABLES if k not in tables]
         if missing:
             raise ValueError(f"missing tables: {missing}")
         host = {k: np.asarray(tables[k]) for k in HOST_TABLES}
-        plan = make_plan(self.config.src.L, self.config.src.M,
-                         self.config.src.taps_rule_factor)
+        plan = self._plan()
         d = host["state_corr"].shape[0]
         U, G = plan.P, GROUPS_PER_BLOCK
         want = {
@@ -141,6 +387,8 @@ class AudioPipeline(nn.Module):
         w_cat = eq_cat_weights(types.SimpleNamespace(
             group_fir=host["group_fir"], group_in=host["group_in"]))
         buffers = {"G": host["G"], "g2": cat_operator(host["G"], w_cat),
+                   "w_frames": frames_weights(host["group_fir"],
+                                              host["group_in"]),
                    **{name: host[name] for name in EQ_TABLES}}
         for name, arr in buffers.items():
             self.register_buffer(
@@ -167,71 +415,13 @@ class AudioPipeline(nn.Module):
     def _tables(self, fs: int, K: int) -> dict:
         if self._fs != int(fs):
             self._install_tables(fs, design_tables(self.config, fs))
-        out = {name: getattr(self, name) for name in EQ_TABLES}
+        out = {name: getattr(self, name) for name in EQ_TABLES + ("w_frames",)}
         if K <= _CARRY_ALLPAIRS_MAX:
             if self._K != K:
                 host_ops = types.SimpleNamespace(state_corr=self._state_corr)
                 self._set_carry(K, _carry_weights(host_ops, K))
             out["carry_w"] = self.carry_w
         return out
-
-    # ---- the cat forwards -------------------------------------------------
-
-    def _cat_pieces(self, x, fs: int):
-        """Shared front end: (x, (y0, inj), plan, n_out, fs_out, tables)."""
-        cfg = self.config
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        x = x.contiguous()
-        n = x.shape[-1]
-        if not self.cat_supported(n, fs):
-            raise ValueError(
-                f"the cat path does not cover this config/input (n={n}, "
-                f"fs={fs}); see cat_supported"
-            )
-        plan = make_plan(cfg.src.L, cfg.src.M, cfg.src.taps_rule_factor)
-        n_out = cfg.src.output_length(n)
-        fs_out = cfg.src.output_rate(fs)
-        tables = self._tables(fs, frame_grid(n_out, plan.P) // GROUPS_PER_BLOCK)
-        pair = polyphase_fir_class_rect_cat(x, plan, n_out, None, g2=self.g2)
-        return x, pair, plan, n_out, fs_out, tables
-
-    def forward_cat(self, x, fs: int) -> torch.Tensor:
-        """(x, fs) -> z_frames (..., F_pad, P) through the EQ-fused chain."""
-        cfg = self.config
-        _, (y0, inj), plan, _, fs_out, tables = self._cat_pieces(x, fs)
-        return equalize_frames_cat(
-            y0, inj, fs_out, cfg.eq, unroll=plan.P,
-            groups_per_block=GROUPS_PER_BLOCK, tables=tables,
-        )
-
-    def forward_cat_spectra(self, x, fs: int):
-        """(x, fs) -> (z_frames, (mag_x, mag_y, mag_z)): the full render.
-
-        The y spectrum's ~13 frame rows are recomputed from x
-        (resample_rows); the z rows come out of the EQ finish as a side
-        tensor.  Frequency axes are host arrays:
-        ops.spectrum.spectrum_freqs(n, fs) for x and
-        spectrum_freqs(output_length(n), output_rate(fs)) for y and z.
-        """
-        cfg = self.config
-        scfg = cfg.spectrum
-        x, (y0, inj), plan, n_out, fs_out, tables = self._cat_pieces(x, fs)
-        r0, r1 = spectrum_rows_needed(n_out, plan.P, scfg)
-        z, z_rows = equalize_frames_cat(
-            y0, inj, fs_out, cfg.eq, unroll=plan.P,
-            groups_per_block=GROUPS_PER_BLOCK, rows=(r0, r1), tables=tables,
-        )
-        y_rows = resample_rows(x, plan, r0, r1, self.G)
-        mx, my, mz = spectra_mag_stacked([
-            spectrum_window(x, scfg),
-            spectrum_window_rows(y_rows, r0, n_out, scfg),
-            spectrum_window_rows(z_rows, r0, n_out, scfg),
-        ])
-        return z, (mx, my, mz)
-
-    def forward(self, x, fs: int):
-        """``forward_cat_spectra``: the module's call is the full render."""
-        return self.forward_cat_spectra(x, fs)
 
 
 def tables_from_numpy(
@@ -243,8 +433,9 @@ def tables_from_numpy(
     produces them: G (the polyphase plan's operator) and the BlockOperators
     fields group_fir, group_in, group_out, group_pows, group_toeplitz and
     state_corr; optionally carry_w (the carry weights of one block count).
-    G2 = G @ [group_fir^T | group_in] is composed from them in float64.
-    They replace the port's own design output until the input rate
-    changes; shapes are checked against the pipeline's config.
+    G2 = G @ [group_fir^T | group_in] and the frames weights
+    [group_fir^T | group_in | 0] are composed from them in float64.  They
+    serve the cat and frames paths until the input rate changes; shapes are
+    checked against the pipeline's config.
     """
     return pipe._install_tables(fs, tables)

@@ -1,4 +1,4 @@
-"""The EQ cascade's finish on the EQ-fused FIR kernel's output (torch glue).
+"""The EQ cascade as a block-parallel state-space recurrence (torch glue + K9).
 
 The reference applies up to six peaking biquads through sequential
 ``scipy.signal.lfilter`` passes (dsp_core.py:216-254).  As in the JAX package
@@ -7,16 +7,22 @@ host into ONE order-d state-space system in Schur form, and the signal is
 cut into blocks of G groups of U samples:
 
 1. per group g:  y0 = x_g @ group_fir^T (zero-state output) and
-   inj = x_g @ group_in (state injection) — folded into the cat FIR kernel
+   inj = x_g @ group_in (state injection): one product against the weight
+   concat [group_fir^T | group_in], or folded into the cat FIR kernel
    (kernels/fir_class.py), which emits (y0, inj) per frame (U = P);
 2. per block:    [s_1..s_G] = inj @ group_toeplitz (zero-init group states);
 3. across blocks: sigma_{k+1} = A^block sigma_k + e_k (``_carry_states``);
-4. readout:      z = clip(y0 + (s_in + A^{gU} sigma) @ group_out, -1, 1).
+4. readout:      z = clip(y0 + (s_in + A^{gU} sigma) @ group_out, -1, 1),
+   one pass of K9 (kernels/eq_finish.py).
 
-Steps 2-4 are the glue the JAX package leaves to XLA; here they are plain
+Steps 1-3 are the glue the JAX package leaves to XLA; here they are plain
 torch products, in float32 with TF32 off (utils/precision).  Host tables
 (float64 numpy) are copies of the JAX design code and are held bit-for-bit
-equal by the tests.
+equal by the tests.  Entry points: ``equalize`` (flat signals, block 8192 /
+unroll 128 by default), ``equalize_frames`` (the frames path's (F, P)
+frames at unroll P) and ``equalize_frames_cat`` (the cat kernel's output).
+Every product is float32: the JAX package's ``fast`` bf16x3 option is
+accepted and has no effect.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 from ..config import EQConfig
+from ..kernels.eq_finish import eq_finish, eq_finish_plain
 from ..design.biquad import (
     BlockOperators,
     block_operators,
@@ -57,6 +64,19 @@ def eq_cat_weights(ops: BlockOperators) -> np.ndarray:
         [ops.group_fir.T.astype(np.float64),
          ops.group_in.astype(np.float64)], axis=1
     )
+
+
+def frames_weights(group_fir: np.ndarray, group_in: np.ndarray) -> np.ndarray:
+    """(U, Vp) float32 [group_fir^T | group_in | 0] for the frames EQ.
+
+    x_g @ it yields [y0 | inj] per group in one product.  Vp = U + d is
+    rounded up to a multiple of 4 with zero columns, so that y0, read as a
+    column slice of the product, has 16-byte aligned rows for K9.
+    """
+    w = np.concatenate([np.asarray(group_fir, np.float64).T,
+                        np.asarray(group_in, np.float64)], axis=1)
+    pad = -w.shape[1] % 4
+    return np.pad(w, ((0, 0), (0, pad))).astype(np.float32)
 
 
 # Below this K the carry solve is ONE dense (K d, K d) matmul against a
@@ -151,16 +171,158 @@ def _carry_states(
 
 
 EQ_TABLES = ("group_out", "group_pows", "group_toeplitz", "state_corr")
+FINISHES = ("auto", "torch", "kernel")
 
 
-def eq_tables(ops: BlockOperators, device) -> dict:
-    """The EQ finish's float32 device tables from host block operators."""
-    return {
-        name: torch.as_tensor(
-            np.asarray(getattr(ops, name), dtype=np.float32), device=device
-        )
-        for name in EQ_TABLES
-    }
+_device_tables: dict = {}
+
+
+def block_tables(ops: BlockOperators, device, K: int) -> dict:
+    """Every float32 device table of ``ops`` for K blocks: ``EQ_TABLES``,
+    ``w_frames`` (``frames_weights``) and, for K <= _CARRY_ALLPAIRS_MAX,
+    ``carry_w``.  Cached per (ops, device[, K]); BlockOperators instances
+    are ``make_block_operators`` singletons, so id() is a stable key."""
+    key = (id(ops), str(torch.device(device)))
+    out = _device_tables.get(key)
+    if out is None:
+        out = {name: torch.as_tensor(np.asarray(getattr(ops, name),
+                                                dtype=np.float32),
+                                     device=device)
+               for name in EQ_TABLES}
+        out["w_frames"] = torch.as_tensor(
+            frames_weights(ops.group_fir, ops.group_in), device=device)
+        _device_tables[key] = out
+    out = dict(out)
+    if K <= _CARRY_ALLPAIRS_MAX:
+        cw = _device_tables.get(key + (K,))
+        if cw is None:
+            cw = torch.as_tensor(_carry_weights(ops, K), device=device)
+            _device_tables[key + (K,)] = cw
+        out["carry_w"] = cw
+    return out
+
+
+def _true_states(inj: torch.Tensor, tables: Mapping[str, torch.Tensor],
+                 sigma0: torch.Tensor | None = None):
+    """Steps 2-3 and the state half of step 4 on (..., K, G, d) injections.
+
+    Returns (s_true (..., K, G, d) contiguous: the true state entering each
+    group, end_states (..., K, d), sigma (..., K, d)).  ``sigma0``: the
+    incoming state of block 0 (zero by default).
+    """
+    K, G, d = inj.shape[-3:]
+    lead = inj.shape[:-3]
+    toe = tables["group_toeplitz"]
+    if toe.shape != (G * d, G * d):
+        raise ValueError(f"group_toeplitz {tuple(toe.shape)} != {(G*d, G*d)}")
+    s_tail = (inj.reshape(lead + (K, G * d)) @ toe).reshape(lead + (K, G, d))
+    end_states = s_tail[..., G - 1, :]
+    s_in = torch.cat(
+        [s_tail.new_zeros(lead + (K, 1, d)), s_tail[..., : G - 1, :]], dim=-2
+    )
+    sigma = _carry_states(end_states, tables["state_corr"],
+                          tables.get("carry_w"), sigma0)
+    s_true = s_in + torch.einsum("gef,...kf->...kge", tables["group_pows"],
+                                 sigma)
+    return s_true, end_states, sigma
+
+
+def _grouped_run(
+    x_g: torch.Tensor,
+    tables: Mapping[str, torch.Tensor],
+    sigma0: torch.Tensor | None = None,
+):
+    """One full grouped EQ pass on (..., K, G, U): (z, end_states, sigma).
+
+    The JAX package's ``_grouped_run`` followed by its callers' clip: z is
+    clipped, because the readout and the clip are one K9 pass
+    (``eq_finish``).  Step 1 is one product against ``w_frames``; y0 is
+    read by K9 as a column slice of it.
+    """
+    U = x_g.shape[-1]
+    d = tables["state_corr"].shape[0]
+    cat = x_g @ tables["w_frames"]                      # (..., K, G, Vp)
+    s_true, end_states, sigma = _true_states(cat[..., U:U + d], tables,
+                                             sigma0)
+    z = eq_finish(cat[..., :U], s_true, tables["group_out"])
+    return z, end_states, sigma
+
+
+def equalize(x, fs: int, cfg: EQConfig, block: int = 8192,
+             unroll: int = 128, fast: bool = False):
+    """Apply the EQ cascade to (..., N) float32 signals.
+
+    Whole-EQ bypass returns x untouched and unclipped (dsp_core.py:222-223);
+    an active request whose bands all clamp away still clips.  ``fast`` is
+    accepted and has no effect (float32 throughout).
+    """
+    if cfg.bypass:
+        return x
+    x = torch.as_tensor(x, dtype=torch.float32)
+    bands = cfg.active_bands(fs)
+    if not bands:
+        return torch.clamp(x, -1.0, 1.0)
+    ops = make_block_operators(bands, int(fs), cfg.q, block, unroll)
+    K = -(-x.shape[-1] // block)
+    return _equalize_blocks(x, block_tables(ops, x.device, K), block)
+
+
+def equalize_frames(
+    frames: torch.Tensor,
+    fs: int,
+    cfg: EQConfig,
+    groups_per_block: int = 128,
+    fast: bool = False,
+    tables: Mapping[str, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """EQ on frame-major input (..., F, P) -> frame-major output, clipped.
+
+    The frames path's handoff: unroll = P and block = G*P, so every reshape
+    between the SRC frames and the EQ is a free leading-axis regroup.  The
+    same result as ``equalize`` on the flattened signal at that block and
+    unroll (zero-padded tail blocks sliced off).  ``tables``: the device
+    tables (``block_tables`` names), built from the config when omitted.
+    """
+    if cfg.bypass:
+        return frames
+    bands = cfg.active_bands(fs)
+    if not bands:
+        return torch.clamp(frames, -1.0, 1.0)
+    P = frames.shape[-1]
+    F_ = frames.shape[-2]
+    G = groups_per_block
+    lead = frames.shape[:-2]
+    K = -(-F_ // G)
+    if tables is None:
+        ops = make_block_operators(bands, int(fs), cfg.q, G * P, P)
+        tables = block_tables(ops, frames.device, K)
+    x = frames.to(torch.float32)
+    if K * G != F_:
+        x = torch.nn.functional.pad(x, (0, 0, 0, K * G - F_))
+    z, _, _ = _grouped_run(x.reshape(lead + (K, G, P)), tables)
+    return z.reshape(lead + (K * G, P))[..., :F_, :]
+
+
+def _equalize_blocks(
+    x: torch.Tensor,
+    tables: Mapping[str, torch.Tensor],
+    block: int,
+    sigma0: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Block-parallel recurrence over (..., N) -> clipped (..., N).
+
+    ``sigma0``: optional incoming state (..., d).  The JAX package's
+    ``with_state`` (the state after sample N, for streaming) is not ported
+    yet.  The output is clipped: the readout and the clip are one K9 pass.
+    """
+    n = x.shape[-1]
+    U = tables["w_frames"].shape[0]
+    K = -(-n // block)
+    if K * block != n:
+        x = torch.nn.functional.pad(x, (0, K * block - n))
+    x_g = x.reshape(x.shape[:-1] + (K, block // U, U))
+    z, _, _ = _grouped_run(x_g, tables, sigma0)
+    return z.reshape(x.shape[:-1] + (K * block,))[..., :n]
 
 
 def equalize_frames_cat(
@@ -172,6 +334,7 @@ def equalize_frames_cat(
     groups_per_block: int = 128,
     rows: Tuple[int, int] | None = None,
     tables: Mapping[str, torch.Tensor] | None = None,
+    finish: str = "auto",
 ):
     """EQ finish on the cat FIR kernel's emission.
 
@@ -179,11 +342,16 @@ def equalize_frames_cat(
     the per-frame state injections, unpacked.  F must be a multiple of
     ``groups_per_block``.  Returns z frames (..., F, U), clipped; with
     ``rows=(r0, r1)`` also the rows [r0, r1) of z (the spectra consumer's
-    side tensor).  ``tables``: the device tables (``eq_tables`` names plus
-    ``carry_w`` when K <= _CARRY_ALLPAIRS_MAX), built from the config when
-    omitted.  Every product here is float32 (the JAX package's ``fast``
-    bf16x3 option has no counterpart).
+    side tensor).  ``tables``: the device tables (``block_tables``),
+    built from the config when omitted.  ``finish``: 'auto' or 'kernel' runs the readout and clip as
+    one K9 pass (``eq_finish``: the kernel on a CUDA tensor, its plain
+    version on a CPU one); 'torch' runs them as torch products (the JAX
+    package's 'xla' finish).  Every product here is float32 (the JAX
+    package's ``fast`` bf16x3 option has no counterpart).
     """
+    if finish not in FINISHES:
+        raise ValueError(f"unknown finish {finish!r}; expected one of "
+                         f"{FINISHES}")
     bands = cfg.active_bands(fs)
     if cfg.bypass or not bands:
         raise ValueError("cat path requires an active EQ "
@@ -201,27 +369,12 @@ def equalize_frames_cat(
         raise ValueError(f"inj shape {tuple(inj.shape[-2:])} != {(F_, d)}")
     if tables is None:
         ops = make_block_operators(bands, int(fs), cfg.q, G * U, U)
-        tables = eq_tables(ops, y0_frames.device)
-        if K <= _CARRY_ALLPAIRS_MAX:
-            tables["carry_w"] = torch.as_tensor(_carry_weights(ops, K),
-                                                device=y0_frames.device)
-    toe = tables["group_toeplitz"]
-    if toe.shape != (G * d, G * d):
-        raise ValueError(f"group_toeplitz {tuple(toe.shape)} != {(G*d, G*d)}")
+        tables = block_tables(ops, y0_frames.device, K)
     lead = y0_frames.shape[:-2]
-    y0 = y0_frames.reshape(lead + (K, G, U))
-    # Zero-init group states s_1..s_G of every block: one product.
-    s_tail = (inj.reshape(lead + (K, G * d)) @ toe).reshape(lead + (K, G, d))
-    end_states = s_tail[..., G - 1, :]
-    s_in = torch.cat(
-        [s_tail.new_zeros(lead + (K, 1, d)), s_tail[..., : G - 1, :]], dim=-2
-    )
-    sigma = _carry_states(end_states, tables["state_corr"],
-                          tables.get("carry_w"))
-    gpows = tables["group_pows"]                      # (G, d, d)
-    gout = tables["group_out"]                        # (d, U)
-    s_true = s_in + torch.einsum("gef,...kf->...kge", gpows, sigma)
-    z = torch.clamp(y0 + s_true @ gout, -1.0, 1.0).reshape(lead + (F_, U))
+    s_true, _, _ = _true_states(inj.reshape(lead + (K, G, d)), tables)
+    s_true = s_true.reshape(lead + (F_, d))
+    readout = eq_finish_plain if finish == "torch" else eq_finish
+    z = readout(y0_frames, s_true, tables["group_out"])
     if rows is None:
         return z
     # The JAX package recomputes these rows from slices so that XLA never

@@ -1,7 +1,7 @@
 """Windowed magnitude-spectrum ops (the reference's primary analysis view).
 
 Counterpart of the parts of ``dsp_audio_project_tpu/ops/spectrum.py`` that the
-cat chain uses: center segment (or zero-pad to the next power of two),
+cat, frames and flat chains use: center segment (or zero-pad to the next power of two),
 symmetric Hann window, |FFT| over the first N//2+1 bins (dsp_core.py:68-98),
 after the app's analysis cap (app.py:202).  The segment geometry is host
 arithmetic; the window and the rfft run on the tensor's device.
@@ -91,6 +91,32 @@ def spectrum_window(
     start, m, n = spectrum_segment(x.shape[-1], cfg)
     avail = min(m, n - start)
     return _window(x[..., start: start + avail], avail, m)
+
+
+def spectrum_mag(
+    x: torch.Tensor, cfg: SpectrumConfig = SpectrumConfig()
+) -> torch.Tensor:
+    """Magnitude spectrum of (..., N): the device half of
+    ``magnitude_spectrum``."""
+    return rfft_magnitude(spectrum_window(x, cfg))
+
+
+def spectrum_window_frames(
+    frames: torch.Tensor, n_flat: int, cfg: SpectrumConfig = SpectrumConfig()
+) -> torch.Tensor:
+    """spectrum_window of the flat view of (..., F, P) frames, from just the
+    ~m/P frame rows the window touches.  ``n_flat`` is the true sample count
+    the frames hold (trailing pad excluded)."""
+    r0, r1 = spectrum_rows_needed(n_flat, frames.shape[-1], cfg)
+    return spectrum_window_rows(frames[..., r0:r1, :], r0, n_flat, cfg)
+
+
+def spectrum_mag_frames(
+    frames: torch.Tensor, n_flat: int, cfg: SpectrumConfig = SpectrumConfig()
+) -> torch.Tensor:
+    """Magnitude spectrum of the flat view of (..., F, P) frames; equals
+    ``spectrum_mag`` on the flattened signal."""
+    return rfft_magnitude(spectrum_window_frames(frames, n_flat, cfg))
 
 
 def spectrum_rows_needed(

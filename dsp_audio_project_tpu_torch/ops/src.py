@@ -11,10 +11,12 @@ Grouping outputs by phase class c = n mod P (P = L/gcd(L,M)) turns (*) into
 one dense product: frame k is the strided window x[k*s + lo : k*s + lo + W]
 (s = M/gcd(L,M)) and y[k*P + c] = frame_k @ G[:, c], with G a host-built
 (W, P) operator.  ``make_plan`` is a numpy copy of the JAX package's planner
-(``dsp_audio_project_tpu/ops/src.py``), held bit-for-bit equal by the tests;
-``resample_rows`` is its torch counterpart for the few rows the y spectrum
-needs.  The full-signal SRC runs inside the EQ-fused CUDA kernel
-(kernels/fir_class.py).
+(``dsp_audio_project_tpu/ops/src.py``), held bit-for-bit equal by the tests.
+``resample`` is the stand-alone SRC: its frames run through the frames
+kernel (kernels/fir_class.fir_frames_kernel) for every stride s (the JAX
+package's split into shifted matmuls for s >= 8 and a gather below is a
+TPU gather cost, not carried).  ``resample_rows`` computes the few rows the
+y spectrum needs.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 
 from ..config import SRCConfig
 from ..design.sinc import lowpass_sinc
+from ..kernels.fir_class import fir_frames_kernel, plan_operator
 
 
 # eq=False: identity hash (instances are lru_cache singletons per config;
@@ -43,6 +46,8 @@ class PolyphasePlan:
       P:  number of phase classes (outputs per frame).
       W:  frame width.
       taps: FIR length T (odd).
+      halo_left/halo_right: input samples a time-shard needs from its
+        neighbors for seamless overlap-save processing (derived from lo/W).
     """
 
     G: np.ndarray
@@ -53,6 +58,14 @@ class PolyphasePlan:
     taps: int
     L: int
     M: int
+
+    @property
+    def halo_left(self) -> int:
+        return max(0, -self.lo)
+
+    @property
+    def halo_right(self) -> int:
+        return max(0, self.lo + self.W - 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,6 +103,60 @@ def make_plan(
             if hidx < T:
                 G[int(b_c[c]) - t - lo, c] = h[hidx]
     return PolyphasePlan(G=G, lo=lo, s=s, P=P, W=W, taps=T, L=L, M=M)
+
+
+def resample(x, fs: int, cfg: SRCConfig):
+    """L/M sample-rate conversion matching the reference bit-for-behavior.
+
+    ``x``: (..., N) float32 (a tensor, or an array that lands on the CPU).
+    Returns (..., ceil(N*L/M)) and the new rate int(fs*L/M) (truncating,
+    as dsp_core.py:172).  Bypass (L = M = 1) returns x as it came.
+    """
+    fs_out = fs if cfg.bypass else cfg.output_rate(fs)
+    return _resample_jit(x, cfg), fs_out
+
+
+def _resample_jit(x, cfg: SRCConfig):
+    """The device half of ``resample`` (the JAX package jits this one)."""
+    if cfg.bypass:
+        return x
+    x = torch.as_tensor(x, dtype=torch.float32).contiguous()
+    n = x.shape[-1]
+    n_up = n * cfg.L
+    T = cfg.num_taps
+    if n_up >= T:
+        plan = make_plan(cfg.L, cfg.M, cfg.taps_rule_factor)
+        n_out = cfg.output_length(n)
+    else:
+        # Signal shorter than the filter: numpy 'same' convolution returns
+        # max(n_up, T) samples centered at (n_up - 1) // 2.
+        plan = make_plan(cfg.L, cfg.M, cfg.taps_rule_factor, (n_up - 1) // 2)
+        n_out = -(-T // cfg.M)
+    return _resample_frames(x, plan, n, n_out)
+
+
+def shifted_frames_matmul(
+    x: torch.Tensor, plan: PolyphasePlan, num_frames: int, pad_left: int
+) -> torch.Tensor:
+    """(..., num_frames, P) frames of the resampled signal.
+
+    After left-padding by ``pad_left`` (a negative value drops leading
+    samples), index 0 of x is frame 0's window start.  The JAX package's
+    J shifted MXU matmuls over s-sample groups; here one launch of the
+    frames kernel.
+    """
+    x = x.to(torch.float32).contiguous()
+    return fir_frames_kernel(x, plan_operator(plan, x.device), plan.s,
+                             num_frames, pad_left)
+
+
+def _resample_frames(
+    x: torch.Tensor, plan: PolyphasePlan, n: int, n_out: int
+) -> torch.Tensor:
+    """y[k*P + c] = sum_w x[k*s + lo + w] G[w, c], flat and cropped to n_out."""
+    num_frames = -(-n_out // plan.P)
+    frames = shifted_frames_matmul(x, plan, num_frames, -plan.lo)
+    return frames.reshape(x.shape[:-1] + (num_frames * plan.P,))[..., :n_out]
 
 
 def resample_rows(

@@ -57,7 +57,7 @@ def jax_pipe(L=160, M=147, gains=GAINS, fast=True, eq_fast=None):
 def test_chain_matches_jax_and_oracle():
     x = make_x(2, FS, seed=1)
     jz, jm = jax_pipe()._forward_cat_spectra(jnp.asarray(x), FS)
-    pipe = pt.AudioPipeline(port_cfg())
+    pipe = pt.AudioPipeline(port_cfg(), device="cpu")
     z, mags = pipe.forward_cat_spectra(torch.as_tensor(x), FS)
     assert z.shape == jz.shape == (2, 1024, 160)
     assert snr_db(np.asarray(jz).ravel(), z.numpy().ravel()) > 90
@@ -78,7 +78,8 @@ def test_chain_matches_jax_and_oracle():
 def test_spectra_match_oracle():
     x = make_x(1, 2 * FS, seed=3)[0]
     cfg = port_cfg()
-    z, (mx, my, mz) = pt.AudioPipeline(cfg).forward_cat_spectra(x, FS)
+    pipe = pt.AudioPipeline(cfg, device="cpu")
+    z, (mx, my, mz) = pipe.forward_cat_spectra(x, FS)
     y_want, fs_out = oracle.resample_oracle(x, FS, cfg.src, engine="fast")
     z_want = oracle.equalize_oracle(y_want, fs_out, cfg.eq)
     for sig, rate, got in ((x, FS, mx), (y_want, fs_out, my),
@@ -90,7 +91,7 @@ def test_spectra_match_oracle():
 def test_tables_from_numpy_with_jax_tables():
     x = torch.as_tensor(make_x(2, FS, seed=2))
     cfg = port_cfg()
-    own = pt.AudioPipeline(cfg)
+    own = pt.AudioPipeline(cfg, device="cpu")
     z0, m0 = own.forward_cat_spectra(x, FS)
     plan = jmake_plan(160, 147)
     jops = jeq.make_block_operators(
@@ -102,14 +103,15 @@ def test_tables_from_numpy_with_jax_tables():
               "group_toeplitz": jops.group_toeplitz,
               "state_corr": jops.state_corr,
               "carry_w": jeq._carry_weights(jops, 8)}
-    other = pt.tables_from_numpy(pt.AudioPipeline(cfg), FS, tables)
+    other = pt.tables_from_numpy(pt.AudioPipeline(cfg, device="cpu"), FS,
+                                 tables)
     z1, m1 = other.forward_cat_spectra(x, FS)
     assert torch.equal(z0, z1)
     assert all(torch.equal(a, b) for a, b in zip(m0, m1))
     for name in ("G", "g2", "group_toeplitz", "carry_w"):
         assert torch.equal(getattr(own, name), getattr(other, name)), name
     with pytest.raises(ValueError):
-        pt.tables_from_numpy(pt.AudioPipeline(cfg), FS,
+        pt.tables_from_numpy(pt.AudioPipeline(cfg, device="cpu"), FS,
                              {**tables, "group_out": jops.group_out[:, :10]})
 
 
@@ -119,15 +121,16 @@ def test_cat_supported_agrees_with_jax(L, M):
         for fast, eq_fast in ((True, True), (False, False), (True, False)):
             for n in (FS, 20):
                 want = jax_pipe(L, M, gains, fast, eq_fast).cat_supported(n, FS)
-                got = pt.AudioPipeline(
-                    port_cfg(L, M, gains, fast, eq_fast)).cat_supported(n, FS)
+                got = pt.AudioPipeline(port_cfg(L, M, gains, fast, eq_fast),
+                                       device="cpu").cat_supported(n, FS)
                 assert got == want, (L, M, gains, fast, eq_fast, n)
-    assert pt.AudioPipeline(port_cfg(L, M)).cat_supported(FS, FS)
+    assert pt.AudioPipeline(port_cfg(L, M), device="cpu").cat_supported(FS, FS)
 
 
 def test_cat_rejects_bypass():
-    assert not pt.AudioPipeline(port_cfg(L=1, M=1)).cat_supported(FS, FS)
-    pipe = pt.AudioPipeline(port_cfg(gains={}))
+    assert not pt.AudioPipeline(port_cfg(L=1, M=1),
+                               device="cpu").cat_supported(FS, FS)
+    pipe = pt.AudioPipeline(port_cfg(gains={}), device="cpu")
     assert not pipe.cat_supported(FS, FS)
     with pytest.raises(ValueError):
         pipe.forward_cat_spectra(torch.zeros(FS), FS)
@@ -137,7 +140,7 @@ def test_cat_rejects_bypass():
 def test_other_rates_match_oracle(L, M):
     x = make_x(1, FS // 2, seed=L)[0]
     cfg = port_cfg(L, M)
-    z = pt.AudioPipeline(cfg).forward_cat(x, FS)
+    z = pt.AudioPipeline(cfg, device="cpu").forward_cat(x, FS)
     n_out = cfg.src.output_length(x.shape[-1])
     want, _ = oracle.pipeline_oracle(x, FS, cfg.src, cfg.eq, engine="fast")
     assert snr_db(want, z.reshape(-1)[:n_out].numpy()) > 90

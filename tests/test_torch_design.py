@@ -101,6 +101,15 @@ def test_config_semantics_match_jax():
         assert a.output_rate(FS) == b.output_rate(FS)
     s = pt.SpectrumConfig()
     assert (s.nfft, s.analysis_limit) == (2048, 100_000)
+    jk, tk = jconfig.KernelConfig(), pt.KernelConfig()
+    for name in ("fir_path", "iir_path", "iir_block", "iir_unroll",
+                 "eq_fast", "src_fast"):
+        assert getattr(jk, name) == getattr(tk, name), name
+    for path in ("auto", "jnp", "pallas"):
+        a = jconfig.KernelConfig(fir_path=path, iir_path=path)
+        b = pt.KernelConfig(fir_path=path, iir_path=path)
+        assert a.resolve("fir") == b.resolve("fir")
+        assert a.resolve("iir") == b.resolve("iir")
 
 
 def test_oracle_matches_jax():
@@ -121,14 +130,20 @@ def test_oracle_matches_jax():
 
 
 def test_port_imports_no_jax():
-    code = ("import dsp_audio_project_tpu_torch, sys; "
-            "import dsp_audio_project_tpu_torch.models.chain, "
-            "dsp_audio_project_tpu_torch.oracle; "
+    root = pathlib.Path(__file__).resolve().parent.parent
+    pkg = root / "dsp_audio_project_tpu_torch"
+    modules = sorted(
+        ".".join(f.relative_to(root).with_suffix("").parts)
+        for f in pkg.rglob("*.py") if f.name != "__init__.py"
+    )
+    assert "dsp_audio_project_tpu_torch.kernels.eq_finish" in modules
+    code = ("import sys, importlib; "
+            f"[importlib.import_module(m) for m in {modules!r}]; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'dsp_audio_project_tpu' not in sys.modules")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=300,
-                          cwd=pathlib.Path(__file__).resolve().parent.parent)
+                          cwd=root)
     assert proc.returncode == 0, proc.stderr
 
 

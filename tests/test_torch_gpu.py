@@ -6,10 +6,12 @@ has none:
 
     python -m pytest tests/test_torch_gpu.py -q --noconftest
 
-Tolerances: > 120 dB for K1 (fp32 FMAs vs cuBLAS fp32, sums of <= 496 terms
-in different orders) and > 110 dB for K2 (fp32, different orders; small
-bins carry the relative error); the whole chain on the card vs on the CPU
-(plain versions): > 110 dB for z and the spectra.
+Tolerances: > 120 dB for K1 and the frames kernel (fp32 FMAs vs cuBLAS
+fp32, sums of <= 496 terms in different orders), > 120 dB for K9 (d <= 12
+products and one add, in another order) and > 110 dB for K2 (fp32,
+different orders; small bins carry the relative error); the cat and frames
+chains on the card vs on the CPU (plain versions): > 110 dB for z, y and
+the spectra.
 """
 from __future__ import annotations
 
@@ -21,8 +23,14 @@ import dsp_audio_project_tpu_torch as pt
 from dsp_audio_project_tpu_torch.kernels import (
     launch_counts, reset_launch_counts,
 )
+from dsp_audio_project_tpu_torch.kernels import fir_frames
+from dsp_audio_project_tpu_torch.kernels.eq_finish import (
+    eq_finish, eq_finish_plain,
+)
 from dsp_audio_project_tpu_torch.kernels.fir_class import (
-    cat_operator, fir_cat_plain, polyphase_fir_class_rect_cat,
+    cat_operator, fir_cat_plain, fir_frames_kernel, fir_frames_plain,
+    plan_operator, polyphase_fir, polyphase_fir_class_flat,
+    polyphase_fir_class_rect_cat,
 )
 from dsp_audio_project_tpu_torch.kernels.rfft import (
     _device_tables, rfft_four_step_magnitude, rfft_four_step_plain,
@@ -106,14 +114,108 @@ def test_chain_on_card_matches_cpu(cuda):
         src=pt.SRCConfig(L=160, M=147), eq=pt.EQConfig.from_gains(GAINS),
         kernels=pt.KernelConfig(src_fast=True, eq_fast=True),
     )
-    z_cpu, m_cpu = pt.AudioPipeline(cfg).forward_cat_spectra(x, FS)
+    cpu = pt.AudioPipeline(cfg, device="cpu")
+    z_cpu, m_cpu = cpu.forward_cat_spectra(x, FS)
     pipe = pt.AudioPipeline(cfg, device=cuda)
     reset_launch_counts()
     z, m = pipe.forward_cat_spectra(x, FS)
     torch.cuda.synchronize()
-    assert launch_counts() == {"polyphase_fir_class_rect_cat": 1,
-                               "rfft_four_step_magnitude": 1}
+    counts = launch_counts()
+    assert counts["polyphase_fir_class_rect_cat"] == 1
+    assert counts["eq_finish"] == 1
+    assert counts["rfft_four_step_magnitude"] == 1
+    assert counts["fir_frames_kernel"] == 0
     assert z.device.type == "cuda"
     assert snr_db(host(z_cpu), host(z)) > 110
     for a, b in zip(m_cpu, m):
         assert snr_db(host(a), host(b)) > 110
+
+
+@pytest.mark.parametrize("L,M", [(160, 147), (441, 480), (320, 441), (3, 2)])
+def test_frames_kernel_matches_plain(cuda, L, M):
+    plan = make_plan(L, M)
+    g = plan_operator(plan, cuda)
+    x = torch.as_tensor(make_x(2, 2 * FS, seed=6), device=cuda)
+    n_out = pt.SRCConfig(L=L, M=M).output_length(x.shape[-1])
+    f = -(-n_out // plan.P)
+    before = fir_frames_kernel.launches
+    y = fir_frames_kernel(x, g, plan.s, f, -plan.lo)
+    assert fir_frames_kernel.launches == before + 1
+    ref = fir_frames_plain(x, g, plan.s, f, -plan.lo)
+    torch.cuda.synchronize()
+    assert y.shape == ref.shape == (2, f, plan.P)
+    assert snr_db(host(ref), host(y)) > 120
+
+
+def test_frames_routes_launch_the_kernel(cuda):
+    plan = make_plan(160, 147)
+    x = torch.as_tensor(make_x(2, FS // 4, seed=8), device=cuda)
+    n_out = pt.SRCConfig(L=160, M=147).output_length(x.shape[-1])
+    want = fir_frames_plain(x, plan_operator(plan, cuda), plan.s,
+                            -(-n_out // plan.P), -plan.lo)
+    want_flat = want.reshape(2, -1)[:, :n_out]
+    for route in ("rect", "class", "shear", "flat", "pallas"):
+        before = fir_frames_kernel.launches
+        if route == "flat":
+            got = polyphase_fir_class_flat(x, plan, n_out)
+            ref = want_flat
+        elif route == "pallas":
+            got = polyphase_fir(x, plan, n_out)
+            ref = want_flat
+        else:
+            got = fir_frames(x, plan, n_out, kernel=route)
+            ref = want
+        assert fir_frames_kernel.launches == before + 1, route
+        torch.cuda.synchronize()
+        assert snr_db(host(ref), host(got)) > 120, route
+
+
+@pytest.mark.parametrize("U,d,ldy", [(160, 10, 160), (160, 10, 172),
+                                     (441, 10, 441), (128, 12, 140),
+                                     (3, 2, 7)])
+def test_eq_finish_kernel_matches_plain(cuda, U, d, ldy):
+    rng = np.random.default_rng(U + ldy)
+    wide = torch.as_tensor(
+        (0.6 * rng.standard_normal((2, 300, ldy))).astype(np.float32),
+        device=cuda)
+    y0 = wide[..., :U]                      # a column slice when ldy > U
+    st = torch.as_tensor(rng.standard_normal((2, 300, d)).astype(np.float32),
+                         device=cuda)
+    gout = torch.as_tensor(
+        (0.2 * rng.standard_normal((d, U))).astype(np.float32), device=cuda)
+    before = eq_finish.launches
+    z = eq_finish(y0, st, gout)
+    assert eq_finish.launches == before + 1
+    ref = eq_finish_plain(y0, st, gout)
+    torch.cuda.synchronize()
+    assert z.shape == ref.shape and z.is_contiguous()
+    assert snr_db(host(ref), host(z)) > 120
+    assert float((z - ref).abs().max()) <= 1e-6
+
+
+def test_frames_chain_on_card_matches_cpu(cuda):
+    x = make_x(2, FS, seed=9)
+    cfg = pt.PipelineConfig(
+        src=pt.SRCConfig(L=160, M=147), eq=pt.EQConfig.from_gains(GAINS),
+    )
+    out_cpu = pt.AudioPipeline(cfg, device="cpu")(x, FS, with_spectra=True)
+    pipe = pt.AudioPipeline(cfg)            # the card by default
+    assert pipe.device.type == "cuda"
+    reset_launch_counts()
+    out = pipe(x, FS, with_spectra=True)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["fir_frames_kernel"] == 1
+    assert counts["eq_finish"] == 1
+    assert counts["rfft_four_step_magnitude"] == 3
+    assert counts["polyphase_fir_class_rect_cat"] == 0
+    for a, b in ((out_cpu.output, out.output),
+                 (out_cpu.resampled, out.resampled)):
+        assert b.device.type == "cuda"
+        assert snr_db(host(a), host(b)) > 110
+    for k in ("input", "resampled", "output"):
+        assert snr_db(host(out_cpu.spectra[k][1]),
+                      host(out.spectra[k][1])) > 110
+    zf_cpu, _ = pt.AudioPipeline(cfg, device="cpu").forward_flat(x, FS)
+    zf, _ = pipe.forward_flat(x, FS)
+    assert snr_db(host(zf_cpu), host(zf)) > 110
