@@ -6,35 +6,48 @@
 
 Drives the port (dsp_audio_project_tpu_torch) at its real size — 44.1 ->
 48 kHz SRC (L/M = 160/147) + the 5-band EQ + |rfft| spectra of x, y and z,
-60 s signals, batch 8 — through the entry points a user calls, and checks
-it.  Phases, one or more lines each:
+and the analysis ops (STFT, spectrogram, long-window spectra), 60 s
+signals, batch 8 — through the entry points a user calls, and checks it.
+Phases, one or more lines each:
 
   1. device: card name, ``nvidia-smi`` name and power limit, TF32 off;
   2. build: every CUDA kernel from csrc/ with nvcc, one process per source,
      all started together (seconds);
   3. [k1] K1 (EQ-fused FIR) vs its plain torch version at the serving shape;
   4. [k2] K2 (four-step |rfft|) vs its plain version at (24, 2048) and at
-     one row of every power of two 256..8192;
+     one row of every power of two 256..8192; [k2c] K2's complex form vs
+     its plain version at 2048 rows of the STFT's (41344, 2048) frames and
+     at one row of every power of two 256..8192;
   5. [k3] the frames FIR kernel (K3-K6, E1) vs its plain version at the
      serving shape, and each entry point that runs it (fir_frames 'rect',
      'class', 'shear', the flat K6 forward, fir_path='pallas') once at a
      small shape: each must launch the kernel and agree;
   6. [k9] the EQ finish kernel vs its plain version at the cat path's and
      the frames path's serving shapes and at a U % 4 != 0 plan (441/480);
-  7. [slice] the cat chain ``forward_cat_spectra``: K1, K9 and K2 must have
+  7. [k7] K7 (two-pass rfft) vs its plain version at one row of every N
+     from 16384 to 524288 and at the spectrogram's (5168, 16384) frames,
+     both forms; [k8] K8 vs its plain version and float64 np.fft.rfft at
+     the (8, 1048576) centre windows, both forms;
+  8. [slice] the cat chain ``forward_cat_spectra``: K1, K9 and K2 must have
      launched; z and the spectra >= 60 dB against the numpy oracle; z with
      the kernel finish vs the torch finish > 120 dB;
-  8. [frames] ``pipe(x, fs, with_spectra=True)`` (the JAX package's
+  9. [frames] ``pipe(x, fs, with_spectra=True)`` (the JAX package's
      ``__call__``) and ``forward_frames_spectra``: the frames kernel, K9
      and K2 must have launched; z, y and the spectra >= 60 dB against the
      oracle outputs of [slice] (same x and config);
-  9. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs):
-     the chains per 60 s signal (per call, and per call of 20 back-to-back
-     calls; the host's own time per call), the cat chain with either
-     finish in turns, and each kernel beside its plain version and one
-     PyTorch library call computing the same function (``library_ms``;
+ 10. [analysis] ``stft(x, 2048, 512)`` must launch K2 complex,
+     ``spectrogram(x, 16384, 4096)`` K7, ``pipe(x, fs, with_spectra=True)``
+     at SpectrumConfig(nfft=32768) K7 three times, ``magnitude_spectrum``
+     at nfft 1048576 (no analysis cap) K8; each >= 60 dB against float64
+     numpy (the STFT's Hann frames through np.fft.rfft, built here) or the
+     oracle's spectra;
+ 11. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs):
+     the chains and analysis paths per call (per call, and per call of 20
+     back-to-back calls; the host's own time per call), the cat chain with
+     either finish in turns, and each kernel beside its plain version and
+     one PyTorch library call computing the same function (``library_ms``;
      the port never calls it).  ``--profile`` adds device time by kernel
-     (torch.profiler) for each chain.
+     (torch.profiler) for each chain and analysis path.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  The third line from the end is the card's name and power
@@ -43,16 +56,20 @@ record
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"},
 ...]}: ``launches`` sums the kernel's launches over the main-path runs of
-[slice] and [frames]; ``bound_ms`` is the larger of the operations over
-the H100's fp32 peak (67 TFLOP/s, an FMA is 2) and the bytes (each input
-read once, each output written once) over 3.35 TB/s, from this run's
-shapes.  The last line is {"ok": true, "device": {"platform": "gpu",
-"kind": ..., "count": ...}}.  Any failed phase raises, so the script exits
-nonzero without those lines; it also fails when no CUDA device is visible.
+[slice], [frames] and [analysis] (for K7 and K8, calls of the two-pass
+launcher, each of which starts both passes, as the JAX K8's two
+``pallas_call``s are one kernel); ``bound_ms`` is the larger of the
+operations over the H100's fp32 peak (67 TFLOP/s, an FMA is 2; an rfft
+counts 2.5 N log2 N a row) and the bytes (each input read once, each
+output written once) over 3.35 TB/s, from this run's shapes.  The last
+line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}.  Any failed phase raises, so the script exits nonzero
+without those lines; it also fails when no CUDA device is visible.
 Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -72,6 +89,10 @@ REPS = 20
 WARMUP = 20   # the card idles during the host-side oracle phase: ramp it up
 FFT_ROWS = 3 * BATCH
 NFFT = 2048
+STFT = (2048, 512)          # nfft, hop of the [analysis] stft
+SPECGRAM = (16384, 4096)    # nfft, hop of the [analysis] spectrogram
+LONG_NFFT = 32768           # pipe(..., with_spectra=True) spectra (K7)
+HUGE_NFFT = 1 << 20         # magnitude_spectrum (K8)
 PEAK_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s (data sheet)
 DEVICE = "cuda"
@@ -103,10 +124,32 @@ def make_batch(n: int) -> np.ndarray:
     ])
 
 
+def real_view(t: torch.Tensor) -> torch.Tensor:
+    """A complex tensor as its (..., 2) real view; a real one as it is."""
+    return torch.view_as_real(t) if t.is_complex() else t
+
+
 def snr_db(ref: torch.Tensor, test: torch.Tensor) -> float:
-    ref = ref.double()
-    err = ref - test.double()
+    ref = real_view(ref).double()
+    err = ref - real_view(test).double()
     return float(10.0 * torch.log10((ref * ref).mean() / (err * err).mean()))
+
+
+def hann(n: int, device) -> torch.Tensor:
+    """The symmetric Hann window of the reference (dsp_core.py:86-87)."""
+    k = torch.arange(n, dtype=torch.float64, device=device)
+    return (0.5 - 0.5 * torch.cos(2 * math.pi * k / (n - 1))).float()
+
+
+def hann_frames(x: torch.Tensor, nfft: int, hop: int) -> torch.Tensor:
+    """(rows, nfft) Hann-windowed frames of (B, N) x as ``stft`` frames
+    them (pad_end: every sample covered), built here for the kernel checks."""
+    import torch.nn.functional as F
+
+    frames = -(-x.shape[-1] // hop)
+    total = (frames - 1) * hop + nfft
+    win = F.pad(x, (0, total - x.shape[-1])).unfold(-1, nfft, hop)
+    return (win * hann(nfft, x.device)).reshape(-1, nfft)
 
 
 def time_ms(fn, reps: int = REPS, warmup: int = WARMUP) -> float:
@@ -149,9 +192,9 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 def compare(tag: str, name: str, got: torch.Tensor, ref: torch.Tensor,
             bound_db: float = 120.0) -> float:
     """Kernel vs plain: SNR > bound_db and max abs err <= 1e-5 * max|ref|."""
-    if got.shape != ref.shape:
-        raise RuntimeError(f"{tag} {name} shape {tuple(got.shape)} != "
-                           f"{tuple(ref.shape)}")
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise RuntimeError(f"{tag} {name} {got.dtype} {tuple(got.shape)} != "
+                           f"{ref.dtype} {tuple(ref.shape)}")
     snr = snr_db(ref, got)
     err = float((got - ref).abs().max())
     top = float(ref.abs().max())
@@ -192,9 +235,12 @@ def phase_build() -> None:
     from dsp_audio_project_tpu_torch.kernels.rfft import (
         _LAUNCHERS as RFFT,
     )
+    from dsp_audio_project_tpu_torch.kernels.rfft_two_pass import (
+        _LAUNCHERS as TWO_PASS,
+    )
 
     libs = (("fir_cat", FIR_CAT), ("eq_finish", EQ_FINISH),
-            ("rfft_four_step", RFFT))
+            ("rfft_four_step", RFFT), ("rfft_two_pass", TWO_PASS))
     t0 = time.perf_counter()
     _build.build([name for name, _ in libs])
     for name, launchers in libs:
@@ -296,6 +342,133 @@ def phase_k2() -> dict:
               4.0 * FFT_ROWS * (NFFT + NFFT // 2 + 1))
     return {"max_abs_err": err, "kern": kern, "plain": plain,
             "lib": lambda: torch.fft.rfft(rows).abs(), "bound": b}
+
+
+def rfft_bound(rows: int, n: int, out_bytes: int) -> tuple[float, str]:
+    """The bound of an rfft of ``rows`` real rows of n points: 2.5 N log2 N
+    flops a row (the DFT tables are the algorithm's, not the function's
+    inputs), the rows read once and ``out_bytes`` per bin written once."""
+    return bound(2.5 * rows * n * math.log2(n),
+                 4.0 * rows * n + out_bytes * rows * (n // 2 + 1))
+
+
+def in_chunks(fn, rows: torch.Tensor, chunk: int = 2048) -> torch.Tensor:
+    """fn over ``rows`` in chunks of ``chunk`` rows, concatenated."""
+    return torch.cat([fn(r) for r in rows.split(chunk)])
+
+
+def phase_k2c(x: torch.Tensor) -> dict:
+    from dsp_audio_project_tpu_torch.kernels.rfft import (
+        _device_tables, rfft_four_step_complex, rfft_four_step_plain,
+    )
+    from dsp_audio_project_tpu_torch.ops.fft import _four_step_kernel_n1
+
+    nfft, hop = STFT
+    frames = hann_frames(x, nfft, hop)           # (41344, 2048), the stft's
+    n1 = _four_step_kernel_n1(nfft)
+    c, d2 = _device_tables(nfft, n1, frames.device)
+    part = frames[:2048]
+    err = compare("k2c", f"{tuple(part.shape)} of {tuple(frames.shape)}",
+                  rfft_four_step_complex(part, n1=n1),
+                  rfft_four_step_plain(part, c, d2, n1, magnitude=False),
+                  bound_db=110.0)
+    rng = np.random.default_rng(17)
+    n = 256
+    while n <= 8192:
+        n1_n = _four_step_kernel_n1(n)
+        row = torch.as_tensor(rng.standard_normal((1, n)).astype(np.float32),
+                              device=DEVICE)
+        cn, d2n = _device_tables(n, n1_n, row.device)
+        got = rfft_four_step_complex(row, n1=n1_n)
+        compare("k2c", f"N={n} n1={n1_n}", got,
+                rfft_four_step_plain(row, cn, d2n, n1_n, magnitude=False),
+                bound_db=110.0)
+        exact = torch.as_tensor(np.fft.rfft(row.cpu().double().numpy()))
+        compare("k2c", f"N={n} vs float64 rfft", got.cpu().to(exact.dtype),
+                exact, bound_db=110.0)
+        n *= 2
+
+    def kern():
+        return rfft_four_step_complex(frames, n1=n1)
+
+    def plain():     # its broadcast intermediate is 256 KB a row: chunked
+        return in_chunks(
+            lambda r: rfft_four_step_plain(r, c, d2, n1, magnitude=False),
+            frames)
+
+    return {"max_abs_err": err, "kern": kern, "plain": plain,
+            "lib": lambda: torch.fft.rfft(frames),
+            "bound": rfft_bound(frames.shape[0], nfft, 8)}
+
+
+def phase_k7(x: torch.Tensor) -> dict:
+    from dsp_audio_project_tpu_torch.kernels.rfft_two_pass import (
+        _device_tables, default_n2, rfft_four_step_tall, rfft_two_pass_plain,
+    )
+
+    rng = np.random.default_rng(19)
+    n = 16384
+    while n <= 524288:
+        row = torch.as_tensor(rng.standard_normal((1, n)).astype(np.float32),
+                              device=DEVICE)
+        tables = _device_tables(n, row.device)
+        for magnitude in (False, True):
+            compare("k7", f"N={n} n2={default_n2(n)} "
+                    f"{'|X|' if magnitude else 'X'}",
+                    rfft_four_step_tall(row, magnitude=magnitude),
+                    rfft_two_pass_plain(row, *tables, magnitude),
+                    bound_db=110.0)
+        n *= 2
+    nfft, hop = SPECGRAM
+    frames = hann_frames(x, nfft, hop)           # (5168, 16384)
+    tables = _device_tables(nfft, frames.device)
+
+    def kern():
+        return rfft_four_step_tall(frames)
+
+    def plain():
+        return rfft_two_pass_plain(frames, *tables, False)
+
+    err = compare("k7", f"spectrogram frames {tuple(frames.shape)} X",
+                  kern(), plain(), bound_db=110.0)
+    compare("k7", f"spectrogram frames {tuple(frames.shape)} |X|",
+            rfft_four_step_tall(frames, magnitude=True),
+            rfft_two_pass_plain(frames, *tables, True), bound_db=110.0)
+    return {"max_abs_err": err, "kern": kern, "plain": plain,
+            "lib": lambda: torch.fft.rfft(frames),
+            "bound": rfft_bound(frames.shape[0], nfft, 8)}
+
+
+def phase_k8(x: torch.Tensor) -> dict:
+    from dsp_audio_project_tpu_torch.kernels.rfft_two_pass import (
+        _device_tables, rfft_two_level, rfft_two_pass_plain,
+    )
+
+    n = HUGE_NFFT
+    mid = x.shape[-1] // 2                # magnitude_spectrum's centre window
+    rows = (x[:, mid: mid + n] * hann(n, x.device)).contiguous()  # (8, 2^20)
+    tables = _device_tables(n, rows.device)
+    exact = np.fft.rfft(rows.cpu().double().numpy())
+    errs = {}
+    for magnitude in (False, True):
+        got = rfft_two_level(rows, magnitude=magnitude)
+        form = "|X|" if magnitude else "X"
+        errs[magnitude] = compare(
+            "k8", f"{tuple(rows.shape)} {form}", got,
+            rfft_two_pass_plain(rows, *tables, magnitude), bound_db=110.0)
+        want = torch.as_tensor(np.abs(exact) if magnitude else exact)
+        compare("k8", f"{tuple(rows.shape)} {form} vs float64 rfft",
+                got.cpu().to(want.dtype), want, bound_db=110.0)
+
+    def kern():
+        return rfft_two_level(rows, magnitude=True)
+
+    def plain():
+        return rfft_two_pass_plain(rows, *tables, True)
+
+    return {"max_abs_err": errs[True], "kern": kern, "plain": plain,
+            "lib": lambda: torch.fft.rfft(rows).abs(),
+            "bound": rfft_bound(rows.shape[0], n, 4)}
 
 
 def phase_k3(pipe, x: torch.Tensor, small: torch.Tensor) -> dict:
@@ -509,6 +682,107 @@ def phase_frames(pipe, x: torch.Tensor, want: list) -> dict:
     return {k: counts[k] + counts2[k] for k in counts}
 
 
+def numpy_stft(xs: np.ndarray, nfft: int, hop: int) -> np.ndarray:
+    """float64 reference STFT (pad_end): Hann frames through np.fft.rfft."""
+    n = xs.shape[-1]
+    frames = -(-n // hop)
+    xp = np.pad(xs.astype(np.float64), ((0, 0), (0, (frames - 1) * hop
+                                                  + nfft - n)))
+    win = np.lib.stride_tricks.sliding_window_view(xp, nfft, axis=-1)[:, ::hop]
+    hann = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(nfft) / (nfft - 1))
+    return np.fft.rfft(win * hann, axis=-1)
+
+
+def phase_analysis(cfg, x: torch.Tensor, xs: np.ndarray, want: list):
+    """The four analysis paths, each counted on its own: (counts summed,
+    the paths as callables for [time])."""
+    import dsp_audio_project_tpu_torch as pt
+    from dsp_audio_project_tpu_torch import oracle
+
+    def gate(tag, snrs):
+        worst = min(snrs)
+        log(f"[analysis] {tag}: min snr over {len(snrs)} signals "
+            f"{worst:.1f} dB vs float64 numpy / the oracle (gate 60)")
+        if not worst >= 60.0:
+            raise RuntimeError(f"[analysis] {tag} below the 60 dB gate")
+
+    def run(tag, fn, name, times):
+        out, counts = run_counted(fn)
+        log(f"[analysis] {tag}: launches {counts}")
+        if counts[name] != times:
+            raise RuntimeError(f"[analysis] {tag} launched {name} "
+                               f"{counts[name]} times, not {times}")
+        return out, counts
+
+    # Each path binds its own sizes: they are called again in [time].
+    nfft, hop = STFT
+    stft = functools.partial(pt.stft, x, nfft=nfft, hop=hop)
+    s, counts = run(f"stft nfft={nfft} hop={hop}", stft,
+                    "rfft_four_step_complex", 1)
+    total = counts
+    ref = numpy_stft(xs, nfft, hop)
+    got = s.cpu().numpy()
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise RuntimeError(f"stft: {got.shape} vs {ref.shape}, or not finite")
+    gate("stft", [oracle.snr_db(np.stack([r.real, r.imag]),
+                                np.stack([g.real, g.imag]))
+                  for r, g in zip(ref, got)])
+    del s, ref, got
+
+    nfft, hop = SPECGRAM
+    spec = functools.partial(pt.spectrogram, x, nfft=nfft, hop=hop)
+    p, counts = run(f"spectrogram nfft={nfft} hop={hop}", spec,
+                    "rfft_four_step_tall", 1)
+    ref = np.abs(numpy_stft(xs, nfft, hop)) ** 2
+    got = p.cpu().numpy()
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise RuntimeError(f"spectrogram: {got.shape} vs {ref.shape}")
+    gate("spectrogram", [oracle.snr_db(r, g) for r, g in zip(ref, got)])
+    total = {k: total[k] + counts[k] for k in total}
+    del p, ref, got
+
+    scfg = pt.SpectrumConfig(nfft=LONG_NFFT)
+    long_pipe = pt.AudioPipeline(pt.PipelineConfig(
+        src=cfg.src, eq=cfg.eq, kernels=cfg.kernels, spectrum=scfg),
+        device=DEVICE)
+    call = functools.partial(long_pipe, x, FS, with_spectra=True)
+    out, counts = run(f"pipe(x, fs, with_spectra=True) nfft={LONG_NFFT}",
+                      call, "rfft_four_step_tall", 3)
+    snrs = []
+    fs_out = cfg.src.output_rate(FS)
+    for i, (y_want, z_want, _) in enumerate(want):
+        for sig, rate, key in ((xs[i], FS, "input"),
+                               (y_want, fs_out, "resampled"),
+                               (z_want, fs_out, "output")):
+            ref = oracle.spectrum_oracle(sig[:scfg.analysis_limit], rate,
+                                         scfg)[1]
+            got = out.spectra[key][1][i].cpu().numpy()
+            if got.shape != ref.shape:
+                raise RuntimeError(f"{key} spectrum {got.shape}")
+            snrs.append(oracle.snr_db(ref, got))
+    gate(f"with_spectra nfft={LONG_NFFT} (x, y, z)", snrs)
+    total = {k: total[k] + counts[k] for k in total}
+
+    hcfg = pt.SpectrumConfig(nfft=HUGE_NFFT, analysis_limit=0)
+    huge = functools.partial(pt.magnitude_spectrum, x, FS, hcfg)
+    (freqs, mag), counts = run(f"magnitude_spectrum nfft={HUGE_NFFT}", huge,
+                               "rfft_two_level", 1)
+    got = mag.cpu().numpy()
+    snrs = []
+    for i in range(xs.shape[0]):
+        f_ref, ref = oracle.spectrum_oracle(xs[i], FS, hcfg)
+        if got[i].shape != ref.shape or not np.array_equal(f_ref, freqs):
+            raise RuntimeError("magnitude_spectrum: shape or axis")
+        snrs.append(oracle.snr_db(ref, got[i]))
+    gate(f"magnitude_spectrum nfft={HUGE_NFFT}", snrs)
+    total = {k: total[k] + counts[k] for k in total}
+    paths = {f"stft nfft={STFT[0]}": stft,
+             f"spectrogram nfft={SPECGRAM[0]}": spec,
+             f"pipe(x, fs, with_spectra=True) nfft={LONG_NFFT}": call,
+             f"magnitude_spectrum nfft={HUGE_NFFT}": huge}
+    return total, paths
+
+
 def host_ms(fn, reps: int = REPS) -> tuple[float, float, float]:
     """(median, min, max) host-clock ms until one call returns, the device
     idle before it: what the host spends to enqueue a call."""
@@ -575,22 +849,27 @@ def main() -> None:
 
     k1 = phase_k1(pipe, x)
     k2 = phase_k2()
+    k2c = phase_k2c(x)
     k3 = phase_k3(pipe, x, small)
     k9 = phase_k9(pipe, k1, k3)
     del k1["y0"], k1["inj"], k3["y"]
+    k7 = phase_k7(x)
+    k8 = phase_k8(x)
     t0 = time.perf_counter()
     want = oracle_outputs(pipe, xs)
     log(f"[oracle] numpy oracle for {BATCH} signals: "
         f"{time.perf_counter() - t0:.2f} s")
-    slice_counts = phase_slice(pipe, x, want)
-    frames_counts = phase_frames(pipe, x, want)
-    launches = {k: slice_counts[k] + frames_counts[k] for k in slice_counts}
+    runs = [phase_slice(pipe, x, want), phase_frames(pipe, x, want)]
+    analysis_counts, analysis_paths = phase_analysis(cfg, x, xs, want)
+    runs.append(analysis_counts)
+    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
 
     chains = {
         "pipe(x, fs, with_spectra=True)":
             lambda: pipe(x, FS, with_spectra=True),
         "forward_frames_spectra": lambda: pipe.forward_frames_spectra(x, FS),
         "forward_cat_spectra": lambda: pipe.forward_cat_spectra(x, FS),
+        **analysis_paths,
     }
     log(f"[time] card: {smi}")
     for name, fn in chains.items():
@@ -610,7 +889,8 @@ def main() -> None:
         f"torch, torch, kernel): kernel {finish['kernel']} ms, torch "
         f"{finish['torch']} ms per call")
 
-    kernels = {"k1": k1, "k2": k2, "k3": k3, "k9": k9}
+    kernels = {"k1": k1, "k2": k2, "k3": k3, "k9": k9, "k2c": k2c,
+               "k7": k7, "k8": k8}
     timings = {}
     for tag, k in kernels.items():
         timings[tag] = {"ms": time_ms(k["kern"]), "plain_ms": time_ms(k["plain"]),
@@ -635,6 +915,12 @@ def main() -> None:
          "dsp_audio_project_tpu/kernels/fir_class.py:928"),
         ("k9", "eq_finish", "csrc/eq_finish.cu",
          "dsp_audio_project_tpu/kernels/eq_finish.py:50"),
+        ("k2c", "rfft_four_step_complex", "csrc/rfft_four_step.cu",
+         "dsp_audio_project_tpu/kernels/rfft.py:125"),
+        ("k7", "rfft_four_step_tall", "csrc/rfft_two_pass.cu",
+         "dsp_audio_project_tpu/kernels/rfft.py:327"),
+        ("k8", "rfft_two_level", "csrc/rfft_two_pass.cu",
+         "dsp_audio_project_tpu/kernels/rfft.py:476"),
     )
     record = {"kernels": [
         {"name": name, "route": "cuda",

@@ -1,17 +1,22 @@
 """dsp_audio_project_tpu_torch — the PyTorch/CUDA port of dsp_audio_project_tpu.
 
 The SRC -> EQ -> spectra chain (44.1 -> 48 kHz polyphase SRC, the biquad
-EQ cascade, |rfft| spectra of x, y and z) on one NVIDIA Hopper GPU, with
-hand-written CUDA kernels for its hot loops (kernels/): the EQ-fused cat
-forwards (slice 1), and ``AudioPipeline.__call__`` with the frames and flat
-forwards (slice 2).  The JAX package beside it is the reference the port is
+EQ cascade, |rfft| spectra of x, y and z) and the analysis ops on one
+NVIDIA Hopper GPU, with hand-written CUDA kernels for their hot loops
+(kernels/): the EQ-fused cat forwards (slice 1), ``AudioPipeline.__call__``
+with the frames and flat forwards (slice 2), and the STFT and long-window
+spectra (slice 3).  The JAX package beside it is the reference the port is
 tested against; this package imports neither jax nor it.
 
 Public entry points:
     process(x, fs, config)            the full SRC->EQ chain
     resample / equalize               individual stages
-    magnitude_spectrum                analysis
+    magnitude_spectrum, angular_spectrum, spectrum_db,
+    stft, spectrogram, stft_planes    analysis
     AudioPipeline                     configured pipeline (a torch Module)
+
+Each runs on the card unless the caller passes ``device="cpu"`` (a tensor
+input stays on its own device).
 
 Importing the package pins float32 matmuls to full precision (TF32 off,
 utils/precision.py).
@@ -34,7 +39,14 @@ from .models.chain import (  # noqa: E402
     tables_from_numpy,
 )
 from .ops.eq import equalize  # noqa: E402
-from .ops.spectrum import magnitude_spectrum  # noqa: E402
+from .ops.spectrum import (  # noqa: E402
+    angular_spectrum,
+    magnitude_spectrum,
+    spectrogram,
+    spectrum_db,
+    stft,
+    stft_planes,
+)
 from .ops.src import resample  # noqa: E402
 
 
@@ -54,10 +66,15 @@ __all__ = [
     "PipelineOutputs",
     "SRCConfig",
     "SpectrumConfig",
+    "angular_spectrum",
     "design_tables",
     "equalize",
     "magnitude_spectrum",
     "process",
     "resample",
+    "spectrogram",
+    "spectrum_db",
+    "stft",
+    "stft_planes",
     "tables_from_numpy",
 ]

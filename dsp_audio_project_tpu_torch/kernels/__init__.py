@@ -13,13 +13,13 @@ Every TPU kernel of the JAX package (each function that reaches
 | id | JAX function (file:line) | port status |
 |----|--------------------------|-------------|
 | K1 | kernels/fir_class.py:731 polyphase_fir_class_rect_cat | ported: fir_class.py + csrc/fir_cat.cu (CUDA) |
-| K2 | kernels/rfft.py:125 rfft_pallas_four_step | ported: rfft.py + csrc/rfft_four_step.cu (CUDA), magnitude form |
+| K2 | kernels/rfft.py:125 rfft_pallas_four_step | ported: rfft.py + csrc/rfft_four_step.cu (CUDA), magnitude and complex forms |
 | K3 | kernels/fir_class.py:928 polyphase_fir_class_rect_frames | ported: fir_class.py on the frames kernel, csrc/fir_cat.cu fir_frames_launch (CUDA) |
 | K4 | kernels/fir_class.py:1042 polyphase_fir_class_frames | ported: fir_class.py on the frames kernel (CUDA) |
 | K5 | kernels/fir_shear.py:167 polyphase_fir_shear_frames | ported: fir_shear.py on the frames kernel (CUDA) |
 | K6 | kernels/fir_class.py:312 polyphase_fir_class_flat | ported: fir_class.py on the frames kernel, flat view (CUDA) |
-| K7 | kernels/rfft.py:327 rfft_pallas_four_step_tall | to be ported (N 16384..524288) |
-| K8 | kernels/rfft.py:476 rfft_pallas_two_level | to be ported (N = 1048576) |
+| K7 | kernels/rfft.py:327 rfft_pallas_four_step_tall | ported: rfft_two_pass.rfft_four_step_tall + csrc/rfft_two_pass.cu (CUDA, two passes) |
+| K8 | kernels/rfft.py:476 rfft_pallas_two_level | ported: rfft_two_pass.rfft_two_level, the same two passes (CUDA) |
 | K9 | kernels/eq_finish.py:50 eq_finish_pallas | ported: eq_finish.py + csrc/eq_finish.cu (CUDA) |
 | E1 | kernels/experiments/fir.py:61 polyphase_fir | ported: fir_class.polyphase_fir on the frames kernel (CUDA) |
 | E2a | kernels/experiments/iir.py:100 block_end_states | to be ported (iir_path='pallas' raises) |
@@ -27,7 +27,7 @@ Every TPU kernel of the JAX package (each function that reaches
 | E3 | kernels/experiments/fir_dma.py:70 polyphase_fir_dma | to be ported; may share the frames kernel |
 | E4 | kernels/experiments/fir_splitbank.py:103 polyphase_fir_rect_splitbank | to be ported; may share the frames kernel |
 | E5 | kernels/experiments/fir_rowdma.py:89 polyphase_fir_rect_rowdma | to be ported; may share the frames kernel |
-| E6 | kernels/experiments/rfft_butterfly.py:76 rfft_pallas | to be ported; may share K2/K7's Hopper kernels |
+| E6 | kernels/experiments/rfft_butterfly.py:76 rfft_pallas | to be ported; may share K2/K7/K8's Hopper kernels |
 | E7 | kernels/experiments/iir_seq.py:127 equalize_seq_flat | to be ported |
 
 Times on the card are in PERF.md.
@@ -41,10 +41,12 @@ from .fir_class import (
     polyphase_fir_class_rect_frames,
 )
 from .fir_shear import polyphase_fir_shear_frames
-from .rfft import rfft_four_step_magnitude
+from .rfft import rfft_four_step_complex, rfft_four_step_magnitude
+from .rfft_two_pass import rfft_four_step_tall, rfft_two_level
 
 KERNELS = (polyphase_fir_class_rect_cat, fir_frames_kernel, eq_finish,
-           rfft_four_step_magnitude)
+           rfft_four_step_magnitude, rfft_four_step_complex,
+           rfft_four_step_tall, rfft_two_level)
 
 
 def launch_counts() -> dict:

@@ -16,7 +16,9 @@ The forwards and the kernels they run:
   viewed flat), then ``ops/eq.equalize`` at block ``iir_block``;
 * ``_forward`` / ``forward_spectra``: ``ops/src.resample`` (the frames
   kernel) or, with fir_path='pallas', E1, then ``equalize``;
-* spectra: K2 (``kernels/rfft.py``) on 2048-point Hann windows.
+* spectra: ``ops/spectrum.magnitude_spectrum`` on Hann windows of
+  ``config.spectrum.nfft`` points: K2 (``kernels/rfft.py``) up to 8192,
+  K7 and K8 (``kernels/rfft_two_pass.py``) from 16384 to 1048576.
 
 The design tables of the cat and frames paths (the polyphase operator G,
 G2 = G @ w_cat, the EQ block operators at block 128*P / unroll P and the
@@ -66,6 +68,7 @@ from ..ops.spectrum import (
     spectrum_window_rows,
 )
 from ..ops.src import make_plan, resample, resample_rows
+from ..utils.device import default_device
 
 GROUPS_PER_BLOCK = 128   # EQ groups (frames) per block: block = 128 * P
 HOST_TABLES = ("G", "group_fir", "group_in") + EQ_TABLES
@@ -112,12 +115,7 @@ class AudioPipeline(nn.Module):
     def __init__(self, config: PipelineConfig = PipelineConfig(), device=None):
         super().__init__()
         if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "AudioPipeline runs on the GPU by default and no CUDA "
-                    "device is visible; pass device='cpu' to run the plain "
-                    "versions of the kernels on the CPU")
-            device = "cuda"
+            device = default_device("AudioPipeline")
         self.config = config
         self.register_buffer("_anchor", torch.empty(0, device=device),
                              persistent=False)

@@ -34,6 +34,7 @@ import torch
 
 from ..config import EQConfig
 from ..kernels.eq_finish import eq_finish, eq_finish_plain
+from ..utils.device import as_input
 from ..design.biquad import (
     BlockOperators,
     block_operators,
@@ -249,16 +250,19 @@ def _grouped_run(
 
 
 def equalize(x, fs: int, cfg: EQConfig, block: int = 8192,
-             unroll: int = 128, fast: bool = False):
+             unroll: int = 128, fast: bool = False, device=None):
     """Apply the EQ cascade to (..., N) float32 signals.
 
-    Whole-EQ bypass returns x untouched and unclipped (dsp_core.py:222-223);
-    an active request whose bands all clamp away still clips.  ``fast`` is
-    accepted and has no effect (float32 throughout).
+    A tensor stays on its device; an array goes to the card (raising
+    without one) unless ``device`` says otherwise (``device="cpu"``).
+    Whole-EQ bypass returns the input tensor untouched and unclipped
+    (dsp_core.py:222-223); an active request whose bands all clamp away
+    still clips.  ``fast`` is accepted and has no effect (float32
+    throughout).
     """
+    x = as_input(x, device, "equalize")
     if cfg.bypass:
         return x
-    x = torch.as_tensor(x, dtype=torch.float32)
     bands = cfg.active_bands(fs)
     if not bands:
         return torch.clamp(x, -1.0, 1.0)

@@ -1,10 +1,18 @@
-"""Windowed magnitude-spectrum ops (the reference's primary analysis view).
+"""Spectrum analysis ops: the reference's views and the STFT.
 
-Counterpart of the parts of ``dsp_audio_project_tpu/ops/spectrum.py`` that the
-cat, frames and flat chains use: center segment (or zero-pad to the next power of two),
-symmetric Hann window, |FFT| over the first N//2+1 bins (dsp_core.py:68-98),
-after the app's analysis cap (app.py:202).  The segment geometry is host
-arithmetic; the window and the rfft run on the tensor's device.
+Counterpart of ``dsp_audio_project_tpu/ops/spectrum.py``:
+  * ``magnitude_spectrum`` — the primary view (dsp_core.py:68-98): center
+    segment (or zero-pad to the next power of two), symmetric Hann window,
+    |FFT| over the first N//2+1 bins, after the app's analysis cap
+    (app.py:202); the chains' window helpers;
+  * ``angular_spectrum`` — the two-sided fftshifted view (app.py:308-327);
+  * ``stft`` / ``spectrogram`` / ``stft_planes`` — Hann-windowed hop-strided
+    frames through the batched rfft kernels (K2 complex up to nfft = 8192,
+    K7 / K8 above).
+The segment geometry is host arithmetic; the window and the FFTs run on
+the tensor's device.  The public entry points take ``device=None``
+(``utils/device.as_input``): a tensor stays where it is, anything else
+goes to the card unless ``device="cpu"`` is asked.
 """
 from __future__ import annotations
 
@@ -16,7 +24,10 @@ import torch
 import torch.nn.functional as F
 
 from ..config import SpectrumConfig
-from .fft import rfft_magnitude
+from ..utils.device import as_input, device_tables
+from .fft import (
+    _rfft_kernel_dispatch, _rfft_kernel_plan, fft, rfft, rfft_magnitude,
+)
 
 
 @functools.lru_cache(maxsize=None)
@@ -26,16 +37,8 @@ def _hann(n: int) -> np.ndarray:
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * idx / (n - 1))).astype(np.float32)
 
 
-_hann_cache: dict = {}
-
-
 def _hann_tensor(n: int, device: torch.device) -> torch.Tensor:
-    key = (n, str(device))
-    w = _hann_cache.get(key)
-    if w is None:
-        w = torch.as_tensor(_hann(n), device=device)
-        _hann_cache[key] = w
-    return w
+    return device_tables(_hann, n, device=device)
 
 
 def _segment_bounds(n: int, nfft: int) -> Tuple[int, int]:
@@ -82,6 +85,13 @@ def _window(seg: torch.Tensor, avail: int, m: int) -> torch.Tensor:
     return seg.to(torch.float32) * _hann_tensor(m, seg.device)
 
 
+def _windowed_rfft_mag(x: torch.Tensor, start: int, m: int) -> torch.Tensor:
+    """|rfft| of the Hann-windowed m-sample segment of (..., N) at
+    ``start`` (zero-padded past the end)."""
+    avail = min(m, x.shape[-1] - start)
+    return rfft_magnitude(_window(x[..., start: start + avail], avail, m))
+
+
 def spectrum_window(
     x: torch.Tensor, cfg: SpectrumConfig = SpectrumConfig()
 ) -> torch.Tensor:
@@ -98,7 +108,8 @@ def spectrum_mag(
 ) -> torch.Tensor:
     """Magnitude spectrum of (..., N): the device half of
     ``magnitude_spectrum``."""
-    return rfft_magnitude(spectrum_window(x, cfg))
+    start, m, n = spectrum_segment(x.shape[-1], cfg)
+    return _windowed_rfft_mag(x[..., :n], start, m)
 
 
 def spectrum_window_frames(
@@ -159,8 +170,84 @@ def spectra_mag_stacked(segs: Sequence[torch.Tensor]):
 
 
 def magnitude_spectrum(
-    x: torch.Tensor, fs: int, cfg: SpectrumConfig = SpectrumConfig()
+    x, fs: int, cfg: SpectrumConfig = SpectrumConfig(), device=None
 ) -> Tuple[np.ndarray, torch.Tensor]:
-    """(freqs, |X[k]|) for (..., N) signals; freqs is a host array."""
-    mag = rfft_magnitude(spectrum_window(x, cfg))
-    return spectrum_freqs(x.shape[-1], fs, cfg), mag
+    """(freqs, |X[k]|) for (..., N) signals; freqs is a host array.
+
+    The analysis cap (first ``analysis_limit`` samples) is applied before
+    segmentation, as the app does.  A segment of 256..1048576 points runs
+    its rfft kernel (K2, K7 or K8).
+    """
+    x = as_input(x, device, "magnitude_spectrum")
+    n = x.shape[-1]
+    start, m, n_cap = spectrum_segment(n, cfg)
+    mag = _windowed_rfft_mag(x[..., :n_cap], start, m)
+    return np.fft.rfftfreq(m, d=1.0 / fs), mag
+
+
+def angular_spectrum(segment, device=None) -> Tuple[np.ndarray, torch.Tensor]:
+    """Two-sided fftshifted magnitude over [-pi, pi) (app.py:322-327).
+
+    ``segment`` is (..., nfft) with nfft a power of two; returns the
+    normalized-frequency axis (host array) and |fftshift(FFT(segment))|
+    (the torch butterfly).
+    """
+    seg = as_input(segment, device, "angular_spectrum")
+    m = seg.shape[-1]
+    w_axis = np.linspace(-np.pi, np.pi, m)
+    return w_axis, torch.roll(fft(seg).abs(), m // 2, dims=-1)
+
+
+def spectrum_db(mag, floor: float = 1e-12, device=None) -> torch.Tensor:
+    """dB conversion used by the app's frequency view (app.py:208-210)."""
+    return 20.0 * torch.log10(as_input(mag, device, "spectrum_db") + floor)
+
+
+def stft(x, nfft: int = 2048, hop: int = 512, pad_end: bool = True,
+         fast: bool = True, device=None) -> torch.Tensor:
+    """Short-time Fourier transform: (..., N) -> (..., frames, nfft//2+1)
+    complex64.
+
+    Hann-windowed (the reference's analysis window), hop-strided frames
+    through the batched rfft: a planned nfft (256..1048576) runs its kernel
+    in complex form (K2 up to 8192, K7, K8), other sizes the torch
+    butterfly.  Requires hop | nfft.  ``pad_end`` zero-pads so every
+    sample is covered; otherwise trailing samples short of a full window
+    are dropped.  ``fast`` is accepted and ignored (fp32 throughout).
+    """
+    if nfft % hop:
+        raise ValueError(f"hop {hop} must divide nfft {nfft}")
+    x = as_input(x, device, "stft")
+    n = x.shape[-1]
+    if pad_end:
+        frames = -(-n // hop)
+    else:
+        frames = max(0, (n - nfft) // hop + 1)
+    total = (frames + nfft // hop - 1) * hop
+    xp = F.pad(x, (0, total - n)) if total > n else x[..., :total]
+    if frames:
+        win = xp.unfold(-1, nfft, hop)             # (..., frames, nfft)
+    else:
+        win = xp.new_zeros(x.shape[:-1] + (0, nfft))
+    win = win * _hann_tensor(nfft, x.device)
+    plan = _rfft_kernel_plan(nfft)
+    if plan is not None:
+        return _rfft_kernel_dispatch(win, plan, False)
+    return rfft(win)
+
+
+def spectrogram(x, nfft: int = 2048, hop: int = 512,
+                device=None) -> torch.Tensor:
+    """Power spectrogram |STFT|^2: (..., frames, nfft//2+1) float32."""
+    s = stft(x, nfft=nfft, hop=hop, device=device)
+    return s.real ** 2 + s.imag ** 2
+
+
+def stft_planes(x, nfft: int = 2048, hop: int = 512, pad_end: bool = True,
+                fast: bool = True, device=None) -> torch.Tensor:
+    """STFT as stacked real planes: (..., 2, frames, nfft//2+1) float32,
+    [0] the real part and [1] the imaginary part (the JAX package's
+    host-fetch-safe form)."""
+    s = stft(x, nfft=nfft, hop=hop, pad_end=pad_end, fast=fast,
+             device=device)
+    return torch.stack([s.real, s.imag], dim=-3)

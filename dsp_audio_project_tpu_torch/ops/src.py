@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from ..config import SRCConfig
 from ..design.sinc import lowpass_sinc
 from ..kernels.fir_class import fir_frames_kernel, plan_operator
+from ..utils.device import as_input
 
 
 # eq=False: identity hash (instances are lru_cache singletons per config;
@@ -105,22 +106,24 @@ def make_plan(
     return PolyphasePlan(G=G, lo=lo, s=s, P=P, W=W, taps=T, L=L, M=M)
 
 
-def resample(x, fs: int, cfg: SRCConfig):
+def resample(x, fs: int, cfg: SRCConfig, device=None):
     """L/M sample-rate conversion matching the reference bit-for-behavior.
 
-    ``x``: (..., N) float32 (a tensor, or an array that lands on the CPU).
-    Returns (..., ceil(N*L/M)) and the new rate int(fs*L/M) (truncating,
-    as dsp_core.py:172).  Bypass (L = M = 1) returns x as it came.
+    ``x``: (..., N) float32.  A tensor stays on its device; an array goes
+    to the card (raising without one) unless ``device`` says otherwise
+    (``device="cpu"`` for the CPU).  Returns (..., ceil(N*L/M)) and the new
+    rate int(fs*L/M) (truncating, as dsp_core.py:172).  Bypass (L = M = 1)
+    returns the input tensor as it came.
     """
     fs_out = fs if cfg.bypass else cfg.output_rate(fs)
-    return _resample_jit(x, cfg), fs_out
+    return _resample_jit(as_input(x, device, "resample"), cfg), fs_out
 
 
-def _resample_jit(x, cfg: SRCConfig):
+def _resample_jit(x: torch.Tensor, cfg: SRCConfig):
     """The device half of ``resample`` (the JAX package jits this one)."""
     if cfg.bypass:
         return x
-    x = torch.as_tensor(x, dtype=torch.float32).contiguous()
+    x = x.contiguous()
     n = x.shape[-1]
     n_up = n * cfg.L
     T = cfg.num_taps

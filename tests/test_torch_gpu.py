@@ -11,7 +11,10 @@ fp32, sums of <= 496 terms in different orders), > 120 dB for K9 (d <= 12
 products and one add, in another order) and > 110 dB for K2 (fp32,
 different orders; small bins carry the relative error); the cat and frames
 chains on the card vs on the CPU (plain versions): > 110 dB for z, y and
-the spectra.
+the spectra.  K2 complex, K7 and K8 vs their plain versions and float64
+numpy: max abs error < 1e-5 * max|X| (fp32 sums of at most 1024 terms in
+different orders).  The analysis routes each launch their kernel, and a
+kernel that cannot be built raises for every planned size.
 """
 from __future__ import annotations
 
@@ -32,14 +35,18 @@ from dsp_audio_project_tpu_torch.kernels.fir_class import (
     plan_operator, polyphase_fir, polyphase_fir_class_flat,
     polyphase_fir_class_rect_cat,
 )
+from dsp_audio_project_tpu_torch.kernels import _build
+from dsp_audio_project_tpu_torch.kernels import rfft_two_pass as two_pass
 from dsp_audio_project_tpu_torch.kernels.rfft import (
-    _device_tables, rfft_four_step_magnitude, rfft_four_step_plain,
+    _device_tables, rfft_four_step_complex, rfft_four_step_magnitude,
+    rfft_four_step_plain,
 )
 from dsp_audio_project_tpu_torch.ops.eq import (
     eq_cat_weights, make_block_operators,
 )
 from dsp_audio_project_tpu_torch.ops.fft import (
-    _four_step_kernel_n1, rfft_magnitude,
+    _four_step_kernel_n1, _rfft_kernel_dispatch, _rfft_kernel_plan,
+    rfft_magnitude,
 )
 from dsp_audio_project_tpu_torch.ops.src import make_plan
 from dsp_audio_project_tpu_torch.oracle import snr_db
@@ -103,9 +110,114 @@ def test_rfft_kernel_matches_plain(cuda, n):
     assert snr_db(exact.ravel(), host(got)) > 110
 
 
-def test_rfft_outside_kernel_range_raises(cuda):
-    with pytest.raises(NotImplementedError):
-        rfft_magnitude(torch.zeros(2, 16384, device=cuda))
+def rel_err(want, got) -> float:
+    want = np.asarray(want)
+    return float(np.abs(want - np.asarray(got)).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096, 8192])
+def test_rfft_complex_kernel_matches_plain(cuda, n):
+    n1 = _four_step_kernel_n1(n)
+    x = torch.as_tensor(make_x(24, n, seed=n + 1), device=cuda)
+    before = rfft_four_step_complex.launches
+    got = rfft_four_step_complex(x, n1=n1)
+    assert rfft_four_step_complex.launches == before + 1
+    c, d2 = _device_tables(n, n1, cuda)
+    ref = rfft_four_step_plain(x, c, d2, n1, magnitude=False)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.complex64 and got.shape == ref.shape
+    assert rel_err(ref.cpu().numpy(), got.cpu().numpy()) < 1e-5
+    exact = np.fft.rfft(x.cpu().double().numpy())
+    assert rel_err(exact, got.cpu().numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("n", [16384, 32768, 65536, 131072, 262144, 524288,
+                               1048576])
+def test_two_pass_kernels_match_plain(cuda, n):
+    wrapper = (two_pass.rfft_two_level if n == 1048576
+               else two_pass.rfft_four_step_tall)
+    x = torch.as_tensor(make_x(2, n, seed=n), device=cuda)
+    tables = two_pass._device_tables(n, cuda)
+    exact = np.fft.rfft(x.cpu().double().numpy())
+    for magnitude in (False, True):
+        before = wrapper.launches
+        got = wrapper(x, magnitude=magnitude)
+        assert wrapper.launches == before + 1
+        ref = two_pass.rfft_two_pass_plain(x, *tables, magnitude)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape == (2, n // 2 + 1)
+        assert rel_err(ref.cpu().numpy(), got.cpu().numpy()) < 1e-5
+        want = np.abs(exact) if magnitude else exact
+        assert rel_err(want, got.cpu().numpy()) < 1e-5
+
+
+def test_unplanned_sizes_run_the_butterfly(cuda):
+    for n in (128, 2097152):
+        assert _rfft_kernel_plan(n) is None
+        x = torch.as_tensor(make_x(1, n, seed=3), device=cuda)
+        reset_launch_counts()
+        got = rfft_magnitude(x)
+        torch.cuda.synchronize()
+        assert launch_counts() == dict.fromkeys(launch_counts(), 0)
+        exact = np.abs(np.fft.rfft(x.cpu().double().numpy()))
+        assert rel_err(exact, got.cpu().numpy()) < 1e-5
+
+
+def test_planned_sizes_raise_when_the_kernel_cannot_build(cuda, monkeypatch):
+    def refuse(name, launchers):
+        raise RuntimeError(f"build of {name} refused")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    for n in (256, 2048, 8192, 16384, 524288, 1048576):
+        x = torch.zeros(2, n, device=cuda)
+        for magnitude in (True, False):
+            with pytest.raises(RuntimeError, match="refused"):
+                _rfft_kernel_dispatch(x, _rfft_kernel_plan(n), magnitude)
+        with pytest.raises(RuntimeError, match="refused"):
+            rfft_magnitude(x)
+
+
+@pytest.mark.parametrize("route", ["stft", "spectrogram", "with_spectra",
+                                   "magnitude_spectrum"])
+def test_analysis_routes_launch_their_kernel(cuda, route):
+    """Each analysis route on numpy input (so on the card by default)
+    launches its kernel, and agrees with the same call on the CPU."""
+    x = make_x(2, FS * 3, seed=12)
+    if route == "stft":
+        name, want = "rfft_four_step_complex", 1
+
+        def fn(**kw):
+            return pt.stft(x, nfft=2048, hop=512, **kw)
+    elif route == "spectrogram":
+        name, want = "rfft_four_step_tall", 1
+
+        def fn(**kw):
+            return pt.spectrogram(x, nfft=16384, hop=4096, **kw)
+    elif route == "with_spectra":
+        name, want = "rfft_four_step_tall", 3
+        cfg = pt.PipelineConfig(
+            src=pt.SRCConfig(L=160, M=147), eq=pt.EQConfig.from_gains(GAINS),
+            spectrum=pt.SpectrumConfig(nfft=32768))
+
+        def fn(**kw):
+            out = pt.AudioPipeline(cfg, **kw)(x, FS, with_spectra=True)
+            return out.spectra["output"][1]
+    else:
+        name, want = "rfft_two_level", 1
+        x = make_x(2, 1 << 20, seed=13)
+
+        def fn(**kw):
+            return pt.magnitude_spectrum(
+                x, FS, pt.SpectrumConfig(nfft=1 << 20, analysis_limit=0),
+                **kw)[1]
+    reset_launch_counts()
+    got = fn()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts[name] == want, counts
+    assert got.device.type == "cuda"
+    ref = fn(device="cpu")
+    assert rel_err(ref.numpy(), got.cpu().numpy()) < 1e-5
 
 
 def test_chain_on_card_matches_cpu(cuda):

@@ -85,8 +85,8 @@ def test_non_power_of_two_raises(n):
 
 @pytest.mark.parametrize("n", [128, 16384])
 def test_outside_kernel_range(n):
-    # CPU tensors take torch.fft (the plain reference); the kernel wrapper
-    # itself refuses sizes it does not cover.
+    # A CPU tensor takes the plan's plain version (K7 at 16384) or the
+    # torch butterfly (128); the K2 wrapper itself refuses both sizes.
     x = rows(2, n, seed=1)
     got = rfft_magnitude(torch.as_tensor(x))
     want = np.abs(np.fft.rfft(x.astype(np.float64)))
