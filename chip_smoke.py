@@ -5,9 +5,11 @@
     python3 chip_smoke.py --profile    # also torch.profiler tables by kernel
 
 Drives the port (dsp_audio_project_tpu_torch) at its real size — 44.1 ->
-48 kHz SRC (L/M = 160/147) + the 5-band EQ + |rfft| spectra of x, y and z,
-and the analysis ops (STFT, spectrogram, long-window spectra), 60 s
-signals, batch 8 — through the entry points a user calls, and checks it.
+48 kHz SRC (L/M = 160/147) + the 5-band EQ + |rfft| spectra of x, y and z
+on the cat, frames and explicit-kernel (fir_path = iir_path = 'pallas')
+paths, the analysis ops (STFT, spectrogram, long-window spectra) and the
+experimental kernels' entry points, 60 s signals, batch 8 — through the
+entry points a user calls, and checks it.
 Phases, one or more lines each:
 
   1. device: card name, ``nvidia-smi`` name and power limit, TF32 off;
@@ -41,7 +43,22 @@ Phases, one or more lines each:
      at nfft 1048576 (no analysis cap) K8; each >= 60 dB against float64
      numpy (the STFT's Hann frames through np.fft.rfft, built here) or the
      oracle's spectra;
- 11. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs):
+ 11. [explicit] ``pipe_explicit(x, fs, with_spectra=True)`` with
+     KernelConfig(fir_path='pallas', iir_path='pallas'): the frames kernel
+     (E1), E2a, E2b and K2 must launch; z, y and the spectra >= 60 dB
+     against the oracle outputs of [slice];
+ 12. [e2] E2a and E2b vs their plain versions on that path's own 2816
+     blocks of 8192 (> 80 dB and max abs err <= 1e-3 * max|ref|: 8192
+     dependent float32 steps through poles at radius ~0.996, summed in
+     another order); [e7] E7 at the serving flat shape (y padded to 8 x
+     2,949,120), its own counted run, vs its plain version and the
+     oracle's z (>= 60 dB); [e6] E6 vs its plain version and float64
+     np.fft.rfft at one row of every N from 4 to 32768 and at 65536 (the
+     two-pass route), then its own counted run at the STFT's (41344, 2048)
+     frames; [e345] E3, E4 and E5, each its own counted run at a small
+     shape: each must launch the frames kernel and agree;
+ 13. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs;
+     the plain E2 versions, an 8192-step host loop, median of 2 after 2):
      the chains and analysis paths per call (per call, and per call of 20
      back-to-back calls; the host's own time per call), the cat chain with
      either finish in turns, and each kernel beside its plain version and
@@ -56,11 +73,13 @@ record
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"},
 ...]}: ``launches`` sums the kernel's launches over the main-path runs of
-[slice], [frames] and [analysis] (for K7 and K8, calls of the two-pass
+[slice], [frames], [analysis], [explicit] and the entry points' own runs
+in [e7], [e6] and [e345] (for K7 and K8, calls of the two-pass
 launcher, each of which starts both passes, as the JAX K8's two
 ``pallas_call``s are one kernel); ``bound_ms`` is the larger of the
 operations over the H100's fp32 peak (67 TFLOP/s, an FMA is 2; an rfft
-counts 2.5 N log2 N a row) and the bytes (each input read once, each
+counts 2.5 N log2 N a row; E2 and E7 count their recurrences' and
+products' multiply-adds) and the bytes (each input read once, each
 output written once) over 3.35 TB/s, from this run's shapes.  The last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.  Any failed phase raises, so the script exits nonzero
@@ -190,8 +209,8 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 
 def compare(tag: str, name: str, got: torch.Tensor, ref: torch.Tensor,
-            bound_db: float = 120.0) -> float:
-    """Kernel vs plain: SNR > bound_db and max abs err <= 1e-5 * max|ref|."""
+            bound_db: float = 120.0, rel: float = 1e-5) -> float:
+    """Kernel vs plain: SNR > bound_db and max abs err <= rel * max|ref|."""
     if got.shape != ref.shape or got.dtype != ref.dtype:
         raise RuntimeError(f"{tag} {name} {got.dtype} {tuple(got.shape)} != "
                            f"{ref.dtype} {tuple(ref.shape)}")
@@ -199,8 +218,8 @@ def compare(tag: str, name: str, got: torch.Tensor, ref: torch.Tensor,
     err = float((got - ref).abs().max())
     top = float(ref.abs().max())
     log(f"[{tag}] {name} {tuple(got.shape)}: snr {snr:.1f} dB (bound "
-        f"{bound_db:.0f}), max abs err {err:.3e} (bound 1e-5 * {top:.3e})")
-    if not (snr > bound_db and err <= 1e-5 * top):
+        f"{bound_db:.0f}), max abs err {err:.3e} (bound {rel:g} * {top:.3e})")
+    if not (snr > bound_db and err <= rel * top):
         raise RuntimeError(f"{tag} {name} disagrees with its plain version")
     return err
 
@@ -229,6 +248,15 @@ def phase_build() -> None:
     from dsp_audio_project_tpu_torch.kernels.eq_finish import (
         _LAUNCHERS as EQ_FINISH,
     )
+    from dsp_audio_project_tpu_torch.kernels.experiments.iir import (
+        _LAUNCHERS as IIR_BLOCK,
+    )
+    from dsp_audio_project_tpu_torch.kernels.experiments.iir_seq import (
+        _LAUNCHERS as IIR_SEQ,
+    )
+    from dsp_audio_project_tpu_torch.kernels.experiments.rfft_butterfly import (
+        _LAUNCHERS as BUTTERFLY,
+    )
     from dsp_audio_project_tpu_torch.kernels.fir_class import (
         _LAUNCHERS as FIR_CAT,
     )
@@ -240,7 +268,9 @@ def phase_build() -> None:
     )
 
     libs = (("fir_cat", FIR_CAT), ("eq_finish", EQ_FINISH),
-            ("rfft_four_step", RFFT), ("rfft_two_pass", TWO_PASS))
+            ("rfft_four_step", RFFT), ("rfft_two_pass", TWO_PASS),
+            ("iir_block", IIR_BLOCK), ("iir_seq", IIR_SEQ),
+            ("rfft_butterfly", BUTTERFLY))
     t0 = time.perf_counter()
     _build.build([name for name, _ in libs])
     for name, launchers in libs:
@@ -783,6 +813,197 @@ def phase_analysis(cfg, x: torch.Tensor, xs: np.ndarray, want: list):
     return total, paths
 
 
+# ---- the explicit-kernel routes and the experiments (E2-E7) ---------------
+
+E2_DB, E2_REL = 80.0, 1e-3   # 8192 dependent fp32 steps, poles at r ~ 0.996
+
+
+def eq_operators(cfg, block: int, unroll: int):
+    """The EQ's block operators at the output rate for (block, unroll)."""
+    from dsp_audio_project_tpu_torch.ops.eq import make_block_operators
+
+    fs_out = cfg.src.output_rate(FS)
+    return make_block_operators(cfg.eq.active_bands(fs_out), fs_out,
+                                cfg.eq.q, block, unroll)
+
+
+def phase_explicit(cfg, x: torch.Tensor, want: list):
+    """``pipe_explicit(x, FS, with_spectra=True)`` with fir_path='pallas',
+    iir_path='pallas': (counts, the pipeline, its flat y)."""
+    import dsp_audio_project_tpu_torch as pt
+
+    kc = cfg.kernels
+    pipe = pt.AudioPipeline(pt.PipelineConfig(
+        src=cfg.src, eq=cfg.eq, spectrum=cfg.spectrum,
+        kernels=pt.KernelConfig(fir_path="pallas", iir_path="pallas",
+                                src_fast=kc.src_fast, eq_fast=kc.eq_fast)),
+        device=DEVICE)
+    n_out = cfg.src.output_length(x.shape[-1])
+    out, counts = run_counted(lambda: pipe(x, FS, with_spectra=True))
+    require("explicit", counts, ("fir_frames_kernel", "block_end_states",
+                                 "block_apply", "rfft_four_step_magnitude"))
+    if out.output.shape != (BATCH, n_out) or out.fs_out != 48000:
+        raise RuntimeError(f"pipe_explicit(x, fs): z {tuple(out.output.shape)}")
+    if not bool(torch.isfinite(out.output).all()):
+        raise RuntimeError("non-finite output")
+    gate("explicit", want, out.output, out.resampled,
+         [out.spectra[k][1] for k in ("input", "resampled", "output")])
+    return counts, pipe, out.resampled
+
+
+def phase_e2(cfg, y: torch.Tensor) -> tuple[dict, dict]:
+    """E2a and E2b vs their plain versions on the explicit path's own
+    blocks (y padded to K whole blocks of KernelConfig's iir_block)."""
+    import torch.nn.functional as F
+
+    import dsp_audio_project_tpu_torch as pt
+    from dsp_audio_project_tpu_torch.kernels.experiments import iir
+    from dsp_audio_project_tpu_torch.ops.eq import _carry_states, carry_tables
+
+    kc = pt.KernelConfig()
+    block = kc.iir_block
+    ops = eq_operators(cfg, block, kc.iir_unroll)
+    n = y.shape[-1]
+    K = -(-n // block)
+    xb = F.pad(y, (0, K * block - n)).reshape(y.shape[0], K, block)
+    consts = iir.device_tables(iir._plain_consts, ops, device=y.device)
+    e = iir.block_end_states(xb, ops)
+    e_ref = iir.block_end_states_plain(xb, *consts[:2])
+    torch.cuda.synchronize()
+    err_a = compare("e2", f"E2a end states, {xb.shape[0] * K} blocks of "
+                    f"{block}", e, e_ref, bound_db=E2_DB, rel=E2_REL)
+    tables = carry_tables(ops, y.device, K)
+    sigma = _carry_states(e, tables["state_corr"],
+                          tables.get("carry_w")).contiguous()
+    yk = iir.block_apply(xb, sigma, ops)
+    y_ref = iir.block_apply_plain(xb, sigma, *consts)
+    torch.cuda.synchronize()
+    err_b = compare("e2", "E2b outputs", yk, y_ref, bound_db=E2_DB,
+                    rel=E2_REL)
+    chains, d = xb.shape[0] * K, e.shape[-1]
+    # Per step: s @ A^T + x B (d*d + d FMAs); E2b adds s . C + D x.
+    e2a = {"max_abs_err": err_a, "lib": None, "plain_reps": 2,
+           "kern": lambda: iir.block_end_states(xb, ops),
+           "plain": lambda: iir.block_end_states_plain(xb, *consts[:2]),
+           "bound": bound(2.0 * chains * block * (d * d + d),
+                          4.0 * (xb.numel() + e.numel()))}
+    e2b = {"max_abs_err": err_b, "lib": None, "plain_reps": 2,
+           "kern": lambda: iir.block_apply(xb, sigma, ops),
+           "plain": lambda: iir.block_apply_plain(xb, sigma, *consts),
+           "bound": bound(2.0 * chains * block * (d * d + 2 * d + 1),
+                          4.0 * (2 * xb.numel() + sigma.numel()))}
+    return e2a, e2b
+
+
+def phase_e7(cfg, y: torch.Tensor, want: list):
+    """E7 at the serving flat shape (y zero-padded to a multiple of 10
+    blocks of 8192): its own counted run, vs its plain version and the
+    oracle's z.  (kernel record entry, counts)."""
+    import torch.nn.functional as F
+
+    from dsp_audio_project_tpu_torch import oracle
+    from dsp_audio_project_tpu_torch.kernels.experiments import iir_seq
+
+    sb, block, unroll = 10, 8192, 128
+    ops = eq_operators(cfg, block, unroll)
+    n = y.shape[-1]
+    L = -(-n // (sb * block)) * sb * block
+    xf = F.pad(y, (0, L - n)).contiguous()
+    z, counts = run_counted(
+        lambda: iir_seq.equalize_seq_flat(xf, ops, super_blocks=sb))
+    require("e7", counts, ("equalize_seq_flat",))
+    tables = iir_seq.device_tables(iir_seq._seq_tables, ops, device=y.device)
+    G = block // unroll
+
+    def plain():
+        return iir_seq.equalize_seq_plain(
+            xf.reshape(xf.shape[0], -1, G, unroll), *tables).reshape(xf.shape)
+
+    err = compare("e7", f"flat {tuple(xf.shape)}", z, plain())
+    zh = z[:, :n].cpu().numpy()
+    worst = min(oracle.snr_db(w[1], zh[i]) for i, w in enumerate(want))
+    log(f"[e7] vs the oracle's z, min snr over {len(want)} signals "
+        f"{worst:.1f} dB (gate 60)")
+    if not worst >= 60.0:
+        raise RuntimeError("[e7] output below the 60 dB oracle gate")
+    K, d = L // block, tables[0].shape[1]
+    per_block = (G * unroll * d + G * (G + 1) // 2 * d * d
+                 + G * unroll * unroll + G * d * d + G * d * unroll + d * d)
+    b = bound(2.0 * xf.shape[0] * K * per_block, 4.0 * 2 * xf.numel())
+    return ({"max_abs_err": err, "lib": None, "bound": b, "plain": plain,
+             "kern": lambda: iir_seq.equalize_seq_flat(xf, ops,
+                                                       super_blocks=sb)},
+            counts)
+
+
+def phase_e6(x: torch.Tensor):
+    """E6 at one row of every N from 4 to 32768 and at 65536 (the two-pass
+    route), then its own counted run at the STFT's (41344, 2048) frames.
+    (kernel record entry, counts)."""
+    from dsp_audio_project_tpu_torch.kernels.experiments import (
+        rfft_butterfly as rb,
+    )
+
+    rng = np.random.default_rng(23)
+    n = 4
+    while n <= 2 * rb.MAX_N:
+        row = torch.as_tensor(rng.standard_normal((1, n)).astype(np.float32),
+                              device=DEVICE)
+        got = rb.rfft_butterfly(row)
+        if n <= rb.MAX_N:
+            tables = rb.device_tables(rb._butterfly_tables, n, device=DEVICE)
+            compare("e6", f"N={n}", got, rb.rfft_butterfly_plain(row, *tables),
+                    bound_db=110.0)
+        exact = torch.as_tensor(np.fft.rfft(row.cpu().double().numpy()))
+        compare("e6", f"N={n} vs float64 rfft"
+                + (" (two-pass route)" if n > rb.MAX_N else ""),
+                got.cpu().to(exact.dtype), exact, bound_db=110.0)
+        n *= 2
+    nfft, hop = STFT
+    frames = hann_frames(x, nfft, hop)           # (41344, 2048)
+    tables = rb.device_tables(rb._butterfly_tables, nfft, device=DEVICE)
+    got, counts = run_counted(lambda: rb.rfft_butterfly(frames))
+    require("e6", counts, ("rfft_butterfly",))
+
+    def plain():
+        return in_chunks(lambda r: rb.rfft_butterfly_plain(r, *tables),
+                         frames, chunk=8192)
+
+    err = compare("e6", f"stft frames {tuple(frames.shape)}", got, plain(),
+                  bound_db=110.0)
+    return ({"max_abs_err": err, "kern": lambda: rb.rfft_butterfly(frames),
+             "plain": plain, "lib": lambda: torch.fft.rfft(frames),
+             "bound": rfft_bound(frames.shape[0], nfft, 8)}, counts)
+
+
+def phase_e345(pipe, small: torch.Tensor) -> dict:
+    """E3, E4 and E5, each its own counted run at a small shape: each must
+    launch the frames kernel and agree with its plain version."""
+    from dsp_audio_project_tpu_torch.kernels.experiments import (
+        polyphase_fir_dma, polyphase_fir_rect_rowdma,
+        polyphase_fir_rect_splitbank,
+    )
+    from dsp_audio_project_tpu_torch.kernels.fir_class import fir_frames_plain
+
+    plan = pipe._plan()
+    ns = pipe.config.src.output_length(small.shape[-1])
+    want = fir_frames_plain(small, pipe.G, plan.s, -(-ns // plan.P), -plan.lo)
+    total = None
+    for fn, ref in ((polyphase_fir_dma, want.reshape(small.shape[0], -1)[:, :ns]),
+                    (polyphase_fir_rect_splitbank, want),
+                    (polyphase_fir_rect_rowdma, want)):
+        got, counts = run_counted(lambda: fn(small, plan, ns))
+        require("e345", counts, (fn.__name__, "fir_frames_kernel"))
+        s = snr_db(ref, got)
+        log(f"[e345] {fn.__name__} {tuple(got.shape)}: snr vs plain {s:.1f} "
+            "dB (bound 120)")
+        if not s > 120.0:
+            raise RuntimeError(f"{fn.__name__} disagrees with the plain version")
+        total = counts if total is None else {k: total[k] + counts[k]
+                                              for k in total}
+    return total
+
+
 def host_ms(fn, reps: int = REPS) -> tuple[float, float, float]:
     """(median, min, max) host-clock ms until one call returns, the device
     idle before it: what the host spends to enqueue a call."""
@@ -862,6 +1083,13 @@ def main() -> None:
     runs = [phase_slice(pipe, x, want), phase_frames(pipe, x, want)]
     analysis_counts, analysis_paths = phase_analysis(cfg, x, xs, want)
     runs.append(analysis_counts)
+    explicit_counts, pipe_explicit, y_flat = phase_explicit(cfg, x, want)
+    runs.append(explicit_counts)
+    e2a, e2b = phase_e2(cfg, y_flat)
+    e7, e7_counts = phase_e7(cfg, y_flat, want)
+    del y_flat
+    e6, e6_counts = phase_e6(x)
+    runs += [e7_counts, e6_counts, phase_e345(pipe, small)]
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
 
     chains = {
@@ -870,6 +1098,8 @@ def main() -> None:
         "forward_frames_spectra": lambda: pipe.forward_frames_spectra(x, FS),
         "forward_cat_spectra": lambda: pipe.forward_cat_spectra(x, FS),
         **analysis_paths,
+        "pipe_explicit(x, fs, with_spectra=True)":
+            lambda: pipe_explicit(x, FS, with_spectra=True),
     }
     log(f"[time] card: {smi}")
     for name, fn in chains.items():
@@ -890,18 +1120,21 @@ def main() -> None:
         f"{finish['torch']} ms per call")
 
     kernels = {"k1": k1, "k2": k2, "k3": k3, "k9": k9, "k2c": k2c,
-               "k7": k7, "k8": k8}
+               "k7": k7, "k8": k8, "e2a": e2a, "e2b": e2b, "e7": e7, "e6": e6}
     timings = {}
     for tag, k in kernels.items():
-        timings[tag] = {"ms": time_ms(k["kern"]), "plain_ms": time_ms(k["plain"]),
+        # The plain E2 loops over 8192 steps on the host: fewer runs.
+        reps = k.get("plain_reps", REPS)
+        timings[tag] = {"ms": time_ms(k["kern"]),
+                        "plain_ms": time_ms(k["plain"], reps, min(reps, WARMUP)),
                         "library_ms": None if k["lib"] is None
                         else time_ms(k["lib"])}
         t = timings[tag]
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
         log(f"[time] {tag}: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, library {lib}, bound "
-            f"{k['bound'][0]:.4f} ms ({k['bound'][1]})")
+            f"{t['plain_ms']:.4f} ms (median of {reps}), library {lib}, "
+            f"bound {k['bound'][0]:.4f} ms ({k['bound'][1]})")
 
     if profile_too:
         phase_profile(chains)
@@ -921,6 +1154,14 @@ def main() -> None:
          "dsp_audio_project_tpu/kernels/rfft.py:327"),
         ("k8", "rfft_two_level", "csrc/rfft_two_pass.cu",
          "dsp_audio_project_tpu/kernels/rfft.py:476"),
+        ("e2a", "block_end_states", "csrc/iir_block.cu",
+         "dsp_audio_project_tpu/kernels/experiments/iir.py:100"),
+        ("e2b", "block_apply", "csrc/iir_block.cu",
+         "dsp_audio_project_tpu/kernels/experiments/iir.py:134"),
+        ("e7", "equalize_seq_flat", "csrc/iir_seq.cu",
+         "dsp_audio_project_tpu/kernels/experiments/iir_seq.py:127"),
+        ("e6", "rfft_butterfly", "csrc/rfft_butterfly.cu",
+         "dsp_audio_project_tpu/kernels/experiments/rfft_butterfly.py:76"),
     )
     record = {"kernels": [
         {"name": name, "route": "cuda",

@@ -144,11 +144,11 @@ class KernelConfig:
     ``fir_path`` / ``iir_path`` ('auto' | 'pallas' | 'jnp', the JAX
     package's names): 'auto' lets ``AudioPipeline.forward`` take the fused
     frames path where it applies; inside the flat forward 'auto' and 'jnp'
-    run ``resample`` / ``equalize``, and fir_path='pallas' runs the
-    experimental flat SRC entry point (E1, on the frames kernel).
-    iir_path='pallas' (the experimental Pallas block IIR, E2) is not ported
-    and raises.  ``iir_block`` / ``iir_unroll``: the flat EQ's block and
-    group length.
+    run ``resample`` / ``equalize``, fir_path='pallas' runs the
+    experimental flat SRC entry point (E1, on the frames kernel) and
+    iir_path='pallas' runs ``ops/eq.equalize_pallas``, the block-IIR CUDA
+    kernels E2a and E2b (``csrc/iir_block.cu``).  ``iir_block`` /
+    ``iir_unroll``: the flat EQ's block and group length.
 
     The JAX package uses ``eq_fast`` / ``src_fast`` to pick bf16x3 matmuls
     on the TPU.  The port's CUDA kernels accumulate in plain fp32 FMAs

@@ -22,17 +22,26 @@ Every TPU kernel of the JAX package (each function that reaches
 | K8 | kernels/rfft.py:476 rfft_pallas_two_level | ported: rfft_two_pass.rfft_two_level, the same two passes (CUDA) |
 | K9 | kernels/eq_finish.py:50 eq_finish_pallas | ported: eq_finish.py + csrc/eq_finish.cu (CUDA) |
 | E1 | kernels/experiments/fir.py:61 polyphase_fir | ported: fir_class.polyphase_fir on the frames kernel (CUDA) |
-| E2a | kernels/experiments/iir.py:100 block_end_states | to be ported (iir_path='pallas' raises) |
-| E2b | kernels/experiments/iir.py:134 block_apply | to be ported (iir_path='pallas' raises) |
-| E3 | kernels/experiments/fir_dma.py:70 polyphase_fir_dma | to be ported; may share the frames kernel |
-| E4 | kernels/experiments/fir_splitbank.py:103 polyphase_fir_rect_splitbank | to be ported; may share the frames kernel |
-| E5 | kernels/experiments/fir_rowdma.py:89 polyphase_fir_rect_rowdma | to be ported; may share the frames kernel |
-| E6 | kernels/experiments/rfft_butterfly.py:76 rfft_pallas | to be ported; may share K2/K7/K8's Hopper kernels |
-| E7 | kernels/experiments/iir_seq.py:127 equalize_seq_flat | to be ported |
+| E2a | kernels/experiments/iir.py:100 block_end_states | ported: experiments/iir.py + csrc/iir_block.cu (CUDA); iir_path='pallas' |
+| E2b | kernels/experiments/iir.py:134 block_apply | ported: experiments/iir.py + csrc/iir_block.cu (CUDA); iir_path='pallas' |
+| E3 | kernels/experiments/fir_dma.py:70 polyphase_fir_dma | ported: experiments/fir_dma.py on the frames kernel (CUDA) |
+| E4 | kernels/experiments/fir_splitbank.py:103 polyphase_fir_rect_splitbank | ported: experiments/fir_splitbank.py on the frames kernel (CUDA) |
+| E5 | kernels/experiments/fir_rowdma.py:89 polyphase_fir_rect_rowdma | ported: experiments/fir_rowdma.py on the frames kernel (CUDA) |
+| E6 | kernels/experiments/rfft_butterfly.py:76 rfft_pallas | ported: experiments/rfft_butterfly.py + csrc/rfft_butterfly.cu (CUDA); K7's kernel above N = 32768 |
+| E7 | kernels/experiments/iir_seq.py:127 equalize_seq_flat | ported: experiments/iir_seq.py + csrc/iir_seq.cu (CUDA) |
 
 Times on the card are in PERF.md.
 """
 from .eq_finish import eq_finish
+from .experiments import (
+    block_apply,
+    block_end_states,
+    equalize_seq_flat,
+    polyphase_fir_dma,
+    polyphase_fir_rect_rowdma,
+    polyphase_fir_rect_splitbank,
+)
+from .experiments.rfft_butterfly import rfft_butterfly
 from .fir_class import (
     class_supported,
     fir_frames_kernel,
@@ -46,11 +55,15 @@ from .rfft_two_pass import rfft_four_step_tall, rfft_two_level
 
 KERNELS = (polyphase_fir_class_rect_cat, fir_frames_kernel, eq_finish,
            rfft_four_step_magnitude, rfft_four_step_complex,
-           rfft_four_step_tall, rfft_two_level)
+           rfft_four_step_tall, rfft_two_level, block_end_states,
+           block_apply, equalize_seq_flat, rfft_butterfly,
+           polyphase_fir_dma, polyphase_fir_rect_splitbank,
+           polyphase_fir_rect_rowdma)
 
 
 def launch_counts() -> dict:
-    """{wrapper name: launches} for every ported kernel."""
+    """{wrapper name: launches} for every ported kernel (E3-E5 count
+    their launches of the frames kernel, which counts them too)."""
     return {k.__name__: k.launches for k in KERNELS}
 
 

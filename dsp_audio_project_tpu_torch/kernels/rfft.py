@@ -70,7 +70,10 @@ def rfft_four_step_plain(x: torch.Tensor, c: torch.Tensor, d2: torch.Tensor,
     d2i = d2[:, n2:n2 + k2max]
     xr = br @ d2r - bi @ d2i                  # (rows, n1, k2max)
     xi = br @ d2i + bi @ d2r
-    out = torch.sqrt(xr * xr + xi * xi) if magnitude else torch.complex(xr, xi)
+    # hypot, not sqrt(xr^2 + xi^2): torch's CPU sqrt kernel can return
+    # ~2e-4-relative values on its first multithreaded call in a process
+    # (ROADMAP Queue 3).
+    out = torch.hypot(xr, xi) if magnitude else torch.complex(xr, xi)
     # X[k1 + n1*k2]: interleave and crop to the N/2+1 real bins.
     return out.transpose(1, 2).reshape(rows, n1 * k2max)[:, : n // 2 + 1]
 

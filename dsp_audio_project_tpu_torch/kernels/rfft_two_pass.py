@@ -91,7 +91,8 @@ def rfft_two_pass_plain(x: torch.Tensor, d1: torch.Tensor, tw: torch.Tensor,
                     (br[:, 0] @ sign)[:, None]], dim=1)
     im = torch.cat([xi.transpose(1, 2).reshape(rows, n // 2),
                     (bi[:, 0] @ sign)[:, None]], dim=1)
-    return torch.sqrt(re * re + im * im) if magnitude else torch.complex(re, im)
+    # hypot rather than sqrt: see rfft.rfft_four_step_plain.
+    return torch.hypot(re, im) if magnitude else torch.complex(re, im)
 
 
 def _launch(x, tables, b, out, n1, n2, magnitude):

@@ -15,7 +15,9 @@ The forwards and the kernels they run:
 * flat (``forward_flat[_spectra]``): the flat SRC (K6, the frames kernel
   viewed flat), then ``ops/eq.equalize`` at block ``iir_block``;
 * ``_forward`` / ``forward_spectra``: ``ops/src.resample`` (the frames
-  kernel) or, with fir_path='pallas', E1, then ``equalize``;
+  kernel) or, with fir_path='pallas', E1, then ``equalize`` or, with
+  iir_path='pallas', ``ops/eq.equalize_pallas`` (the block-IIR kernels
+  E2a and E2b, ``kernels/experiments/iir.py``);
 * spectra: ``ops/spectrum.magnitude_spectrum`` on Hann windows of
   ``config.spectrum.nfft`` points: K2 (``kernels/rfft.py``) up to 8192,
   K7 and K8 (``kernels/rfft_two_pass.py``) from 16384 to 1048576.
@@ -56,6 +58,7 @@ from ..ops.eq import (
     equalize,
     equalize_frames,
     equalize_frames_cat,
+    equalize_pallas,
     frames_weights,
     make_block_operators,
 )
@@ -183,13 +186,15 @@ class AudioPipeline(nn.Module):
     def _run_eq(self, y: torch.Tensor, fs_out: int) -> torch.Tensor:
         cfg = self.config
         kc = cfg.kernels
-        if kc.resolve("iir") != "jnp":
-            raise NotImplementedError(
-                f"iir_path={kc.iir_path!r}: the experimental Pallas block "
-                "IIR (E2, kernels/experiments/iir.py) is not ported yet "
-                "(ROADMAP Queue 2)")
-        return equalize(y, fs_out, cfg.eq, block=kc.iir_block,
-                        unroll=kc.iir_unroll, fast=kc.eq_fast)
+        path = kc.resolve("iir")
+        if path == "jnp":
+            return equalize(y, fs_out, cfg.eq, block=kc.iir_block,
+                            unroll=kc.iir_unroll, fast=kc.eq_fast)
+        if path == "pallas":
+            return equalize_pallas(y, fs_out, cfg.eq, block=kc.iir_block,
+                                   unroll=kc.iir_unroll)
+        raise ValueError(f"unknown iir_path {kc.iir_path!r}; expected "
+                         "'auto', 'jnp' or 'pallas'")
 
     def forward_spectra(self, x, fs: int):
         """Flat full chain: (x, fs) -> (z, y, (mag_x, mag_y, mag_z))."""

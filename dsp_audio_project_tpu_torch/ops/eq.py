@@ -20,7 +20,9 @@ torch products, in float32 with TF32 off (utils/precision).  Host tables
 (float64 numpy) are copies of the JAX design code and are held bit-for-bit
 equal by the tests.  Entry points: ``equalize`` (flat signals, block 8192 /
 unroll 128 by default), ``equalize_frames`` (the frames path's (F, P)
-frames at unroll P) and ``equalize_frames_cat`` (the cat kernel's output).
+frames at unroll P), ``equalize_frames_cat`` (the cat kernel's output) and
+``equalize_pallas`` (``iir_path='pallas'``: the same recurrence as two
+kernel passes over the blocks, E2a and E2b, around the carry solve).
 Every product is float32: the JAX package's ``fast`` bf16x3 option is
 accepted and has no effect.
 """
@@ -34,6 +36,7 @@ import torch
 
 from ..config import EQConfig
 from ..kernels.eq_finish import eq_finish, eq_finish_plain
+from ..kernels.experiments.iir import block_apply, block_end_states
 from ..utils.device import as_input
 from ..design.biquad import (
     BlockOperators,
@@ -193,6 +196,19 @@ def block_tables(ops: BlockOperators, device, K: int) -> dict:
         out["w_frames"] = torch.as_tensor(
             frames_weights(ops.group_fir, ops.group_in), device=device)
         _device_tables[key] = out
+    return {**out, **carry_tables(ops, device, K)}
+
+
+def carry_tables(ops: BlockOperators, device, K: int) -> dict:
+    """The carry solve's float32 device tables for K blocks: ``state_corr``
+    (A^block) and, for K <= _CARRY_ALLPAIRS_MAX, ``carry_w``; cached per
+    (ops, device[, K])."""
+    key = ("carry", id(ops), str(torch.device(device)))
+    out = _device_tables.get(key)
+    if out is None:
+        out = {"state_corr": torch.as_tensor(
+            np.asarray(ops.state_corr, dtype=np.float32), device=device)}
+        _device_tables[key] = out
     out = dict(out)
     if K <= _CARRY_ALLPAIRS_MAX:
         cw = _device_tables.get(key + (K,))
@@ -269,6 +285,37 @@ def equalize(x, fs: int, cfg: EQConfig, block: int = 8192,
     ops = make_block_operators(bands, int(fs), cfg.q, block, unroll)
     K = -(-x.shape[-1] // block)
     return _equalize_blocks(x, block_tables(ops, x.device, K), block)
+
+
+def equalize_pallas(x, fs: int, cfg: EQConfig, block: int = 1024,
+                    unroll: int = 16, device=None):
+    """``equalize`` through the block-IIR kernels E2a and E2b
+    (kernels/experiments/iir.py, ``csrc/iir_block.cu``): the route of
+    ``KernelConfig(iir_path='pallas')``, named as in the JAX package.
+
+    Zero-pad to K whole blocks, E2a (the zero-init end state of each
+    block), ``_carry_states`` (the true initial states), E2b (each block
+    re-run from its true state), crop, clip: x is read twice and y written
+    once, with no correction product.  Bypass and the no-active-band clip
+    as in ``equalize``; ``unroll`` only shapes the design tables.  On a CPU
+    tensor the kernels' plain versions run.
+    """
+    x = as_input(x, device, "equalize_pallas")
+    if cfg.bypass:
+        return x
+    bands = cfg.active_bands(fs)
+    if not bands:
+        return torch.clamp(x, -1.0, 1.0)
+    ops = make_block_operators(bands, int(fs), cfg.q, block, unroll)
+    lead, n = x.shape[:-1], x.shape[-1]
+    K = -(-n // block)
+    xb = torch.nn.functional.pad(x.reshape(-1, n), (0, K * block - n))
+    xb = xb.reshape(-1, K, block)
+    tables = carry_tables(ops, x.device, K)
+    sigma = _carry_states(block_end_states(xb, ops), tables["state_corr"],
+                          tables.get("carry_w"))
+    y = block_apply(xb, sigma.contiguous(), ops)
+    return torch.clamp(y.reshape(lead + (K * block,))[..., :n], -1.0, 1.0)
 
 
 def equalize_frames(

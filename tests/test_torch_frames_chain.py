@@ -188,6 +188,16 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_iir_pallas_raises():
-    pipe = port_pipe(iir_path="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        pipe(make_x(1, 4000), FS)
+    """iir_path='pallas' (E2, once unported and raising) now runs the
+    block-IIR route: against the JAX flat forward and the oracle (> 90 dB),
+    and an unknown path name still raises."""
+    x = make_x(1, 4000, seed=6)
+    jz, jy = jax_pipe(iir_path="pallas", iir_block=1024)._forward(
+        jnp.asarray(x), FS)
+    pipe = port_pipe(iir_path="pallas", iir_block=1024)
+    out = pipe(x, FS)
+    assert out.output.shape == jz.shape
+    assert snr(jz, out.output) > 90 and snr(jy, out.resampled) > 90
+    check_oracle(pipe, x, out.output, out.resampled)
+    with pytest.raises(ValueError, match="iir_path"):
+        port_pipe(iir_path="triton")(x, FS)

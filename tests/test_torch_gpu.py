@@ -331,3 +331,146 @@ def test_frames_chain_on_card_matches_cpu(cuda):
     zf_cpu, _ = pt.AudioPipeline(cfg, device="cpu").forward_flat(x, FS)
     zf, _ = pipe.forward_flat(x, FS)
     assert snr_db(host(zf_cpu), host(zf)) > 110
+
+
+# ---- E2-E7 (kernels/experiments) --------------------------------------------
+
+
+def block_ops(gains, block, unroll=16, fs=48000):
+    cfg = pt.EQConfig.from_gains(gains)
+    return make_block_operators(cfg.active_bands(fs), fs, cfg.q, block,
+                                unroll), cfg
+
+
+@pytest.mark.parametrize("gains,K,block", [
+    (GAINS, 37, 128),             # d = 10, a ragged K, the 16-byte path
+    ({"Bass": 5}, 5, 130),        # d = 2, B % 4 != 0: the scalar path
+    ({**GAINS, "Low Mids": 2}, 9, 256),   # d = 12, all six bands
+])
+def test_iir_block_kernels_match_plain(cuda, gains, K, block):
+    """E2a and E2b vs their plain versions: > 110 dB and max abs error
+    <= 1e-5 * max|ref| (float32 steps summed in another order)."""
+    from dsp_audio_project_tpu_torch.kernels.experiments import iir
+
+    ops, _ = block_ops(gains, block)
+    xb = torch.as_tensor(make_x(2, K * block, seed=K).reshape(2, K, block),
+                         device=cuda)
+    consts = iir.device_tables(iir._plain_consts, ops, device=cuda)
+    before = (iir.block_end_states.launches, iir.block_apply.launches)
+    e = iir.block_end_states(xb, ops)
+    e_ref = iir.block_end_states_plain(xb, *consts[:2])
+    sigma = torch.as_tensor(
+        np.random.default_rng(K).standard_normal(e.shape).astype(np.float32),
+        device=cuda)
+    y = iir.block_apply(xb, sigma, ops)
+    y_ref = iir.block_apply_plain(xb, sigma, *consts)
+    torch.cuda.synchronize()
+    assert (iir.block_end_states.launches, iir.block_apply.launches) == (
+        before[0] + 1, before[1] + 1)
+    for got, ref in ((e, e_ref), (y, y_ref)):
+        assert got.shape == ref.shape
+        assert snr_db(host(ref), host(got)) > 110
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_equalize_pallas_on_card_matches_cpu(cuda):
+    from dsp_audio_project_tpu_torch.ops.eq import equalize_pallas
+
+    cfg = pt.EQConfig.from_gains(GAINS)
+    x = make_x(2, 20000, seed=14)
+    reset_launch_counts()
+    z = equalize_pallas(x, 48000, cfg, block=1024)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["block_end_states"] == counts["block_apply"] == 1
+    assert z.device.type == "cuda"
+    ref = equalize_pallas(x, 48000, cfg, block=1024, device="cpu")
+    assert snr_db(host(ref), host(z)) > 110
+
+
+@pytest.mark.parametrize("block,unroll,sb,rows", [(1024, 64, 2, 3),
+                                                  (8192, 128, 10, 2)])
+def test_iir_seq_kernel_matches_plain(cuda, block, unroll, sb, rows):
+    """E7 vs its plain version, at a small block and at the serving tables
+    (block 8192, unroll 128: 175 KB of shared memory): > 110 dB."""
+    from dsp_audio_project_tpu_torch.kernels.experiments import iir_seq
+
+    ops, _ = block_ops(GAINS, block, unroll)
+    x = torch.as_tensor(make_x(rows, 2 * sb * block, seed=block), device=cuda)
+    before = iir_seq.equalize_seq_flat.launches
+    y = iir_seq.equalize_seq_flat(x, ops, super_blocks=sb)
+    assert iir_seq.equalize_seq_flat.launches == before + 1
+    tables = iir_seq.device_tables(iir_seq._seq_tables, ops, device=cuda)
+    ref = iir_seq.equalize_seq_plain(
+        x.reshape(rows, -1, block // unroll, unroll), *tables)
+    torch.cuda.synchronize()
+    assert snr_db(host(ref), host(y)) > 110
+
+
+@pytest.mark.parametrize("n", [4, 8, 64, 1024, 2048, 32768, 65536])
+def test_rfft_butterfly_matches_plain(cuda, n):
+    """E6 vs its plain version and float64 numpy: max abs error < 1e-5 *
+    max|X|; above N = 32768 the two-pass kernel (K7) runs instead."""
+    from dsp_audio_project_tpu_torch.kernels.experiments import rfft_butterfly as rb
+
+    x = torch.as_tensor(make_x(3, n, seed=n), device=cuda)
+    reset_launch_counts()
+    got = rb.rfft_butterfly(x)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if n > rb.MAX_N:
+        assert counts["rfft_butterfly"] == 0
+        assert counts["rfft_four_step_tall"] == 1
+    else:
+        assert counts["rfft_butterfly"] == 1
+        ref = rb.rfft_butterfly_plain(
+            x, *rb.device_tables(rb._butterfly_tables, n, device=cuda))
+        assert rel_err(ref.cpu().numpy(), got.cpu().numpy()) < 1e-5
+    assert got.dtype == torch.complex64 and got.shape == (3, n // 2 + 1)
+    exact = np.fft.rfft(x.cpu().double().numpy())
+    assert rel_err(exact, got.cpu().numpy()) < 1e-5
+
+
+def test_fir_experiments_launch_the_frames_kernel(cuda):
+    from dsp_audio_project_tpu_torch.kernels.experiments import (
+        polyphase_fir_dma, polyphase_fir_rect_rowdma,
+        polyphase_fir_rect_splitbank,
+    )
+
+    plan = make_plan(160, 147)
+    x = torch.as_tensor(make_x(2, FS // 4, seed=15), device=cuda)
+    n_out = pt.SRCConfig(L=160, M=147).output_length(x.shape[-1])
+    want = fir_frames_plain(x, plan_operator(plan, cuda), plan.s,
+                            -(-n_out // plan.P), -plan.lo)
+    for fn, ref in ((polyphase_fir_dma, want.reshape(2, -1)[:, :n_out]),
+                    (polyphase_fir_rect_splitbank, want),
+                    (polyphase_fir_rect_rowdma, want)):
+        reset_launch_counts()
+        got = fn(x, plan, n_out)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts[fn.__name__] == counts["fir_frames_kernel"] == 1
+        assert snr_db(host(ref), host(got)) > 120, fn.__name__
+
+
+def test_explicit_pipeline_on_card_matches_cpu(cuda):
+    """fir_path='pallas', iir_path='pallas' at the default block 8192:
+    the frames kernel (E1), E2a, E2b and K2 launch; z, y and the spectra
+    > 110 dB against the same call on the CPU."""
+    x = make_x(2, FS, seed=16)
+    cfg = pt.PipelineConfig(
+        src=pt.SRCConfig(L=160, M=147), eq=pt.EQConfig.from_gains(GAINS),
+        kernels=pt.KernelConfig(fir_path="pallas", iir_path="pallas"))
+    out_cpu = pt.AudioPipeline(cfg, device="cpu")(x, FS, with_spectra=True)
+    reset_launch_counts()
+    out = pt.AudioPipeline(cfg)(x, FS, with_spectra=True)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for name, want in (("fir_frames_kernel", 1), ("block_end_states", 1),
+                       ("block_apply", 1), ("rfft_four_step_magnitude", 3)):
+        assert counts[name] == want, counts
+    for a, b in ((out_cpu.output, out.output),
+                 (out_cpu.resampled, out.resampled),
+                 *((out_cpu.spectra[k][1], out.spectra[k][1])
+                   for k in ("input", "resampled", "output"))):
+        assert snr_db(host(a), host(b)) > 110
