@@ -16,20 +16,22 @@ Phases, one or more lines each:
   2. build: every CUDA kernel from csrc/ with nvcc, one process per source,
      all started together (seconds);
   3. [k1] K1 (EQ-fused FIR) vs its plain torch version at the serving shape;
-  4. [k2] K2 (four-step |rfft|) vs its plain version at (24, 2048) and at
-     one row of every power of two 256..8192; [k2c] K2's complex form vs
-     its plain version at 2048 rows of the STFT's (41344, 2048) frames and
-     at one row of every power of two 256..8192;
+  4. [k2] K2 (register-radix |rfft|) vs its plain version at (24, 2048),
+     and vs its plain version and float64 np.fft.rfft at one row of every
+     power of two 256..8192; [k2c] K2's complex form the same way, at 2048
+     rows of the STFT's (41344, 2048) frames and one row of each N;
   5. [k3] the frames FIR kernel (K3-K6, E1) vs its plain version at the
      serving shape, and each entry point that runs it (fir_frames 'rect',
      'class', 'shear', the flat K6 forward, fir_path='pallas') once at a
      small shape: each must launch the kernel and agree;
   6. [k9] the EQ finish kernel vs its plain version at the cat path's and
      the frames path's serving shapes and at a U % 4 != 0 plan (441/480);
-  7. [k7] K7 (two-pass rfft) vs its plain version at one row of every N
-     from 16384 to 524288 and at the spectrogram's (5168, 16384) frames,
+  7. [k7] K7 (one pass up to N = 32768, two above) vs its plain version
+     and float64 np.fft.rfft at one row of every N from 16384 to 524288,
+     and vs its plain version at the spectrogram's (5168, 16384) frames,
      both forms; [k8] K8 vs its plain version and float64 np.fft.rfft at
-     the (8, 1048576) centre windows, both forms;
+     the (8, 1048576) centre windows, both forms (K2, K7, K8: > 110 dB
+     and max abs error <= 1e-5 * max|X|);
   8. [slice] the cat chain ``forward_cat_spectra``: K1, K9 and K2 must have
      launched; z and the spectra >= 60 dB against the numpy oracle; z with
      the kernel finish vs the torch finish > 120 dB;
@@ -334,39 +336,32 @@ def phase_k2() -> dict:
         device=DEVICE,
     )
     n1 = _four_step_kernel_n1(NFFT)
-    c, d2 = _device_tables(NFFT, n1, rows.device)
+    tables = _device_tables(NFFT, rows.device)
 
     def kern():
         return rfft_four_step_magnitude(rows, n1=n1)
 
     def plain():
-        return rfft_four_step_plain(rows, c, d2, n1)
+        return rfft_four_step_plain(rows, *tables)
 
     got, ref = kern(), plain()
     torch.cuda.synchronize()
-    snr = snr_db(ref, got)
-    err = float((got - ref).abs().max())
-    log(f"[k2] {tuple(rows.shape)} n1={n1}: snr {snr:.1f} dB (bound 110), "
-        f"max abs err {err:.3e}")
-    if not snr > 110.0:
-        raise RuntimeError("K2 disagrees with its plain version")
+    err = compare("k2", f"{tuple(rows.shape)} n1={n1}", got, ref,
+                  bound_db=110.0)
     n = 256
     while n <= 8192:
         n1_n = _four_step_kernel_n1(n)
         row = torch.as_tensor(rng.standard_normal((1, n)).astype(np.float32),
                               device=DEVICE)
-        cn, d2n = _device_tables(n, n1_n, row.device)
         g = rfft_four_step_magnitude(row, n1=n1_n)
-        r = rfft_four_step_plain(row, cn, d2n, n1_n)
+        compare("k2", f"N={n}", g,
+                rfft_four_step_plain(row, *_device_tables(n, row.device)),
+                bound_db=110.0)
         exact = torch.as_tensor(np.abs(np.fft.rfft(row.cpu().double().numpy())))
-        s_plain = snr_db(r, g)
-        s_exact = snr_db(exact, g.cpu())
-        log(f"[k2] N={n} n1={n1_n}: snr vs plain {s_plain:.1f} dB, vs "
-            f"float64 rfft {s_exact:.1f} dB (bound 110)")
-        if not (s_plain > 110.0 and s_exact > 110.0):
-            raise RuntimeError(f"K2 disagrees at N={n}")
+        compare("k2", f"N={n} vs float64 rfft", g.cpu().double(), exact,
+                bound_db=110.0)
         n *= 2
-    # rfft's operation count (2.5 N log2 N real flops a row); the DFT
+    # rfft's operation count (2.5 N log2 N real flops a row); the twiddle
     # tables are the algorithm's, not the function's inputs.
     b = bound(2.5 * FFT_ROWS * NFFT * math.log2(NFFT),
               4.0 * FFT_ROWS * (NFFT + NFFT // 2 + 1))
@@ -396,11 +391,11 @@ def phase_k2c(x: torch.Tensor) -> dict:
     nfft, hop = STFT
     frames = hann_frames(x, nfft, hop)           # (41344, 2048), the stft's
     n1 = _four_step_kernel_n1(nfft)
-    c, d2 = _device_tables(nfft, n1, frames.device)
+    tables = _device_tables(nfft, frames.device)
     part = frames[:2048]
     err = compare("k2c", f"{tuple(part.shape)} of {tuple(frames.shape)}",
                   rfft_four_step_complex(part, n1=n1),
-                  rfft_four_step_plain(part, c, d2, n1, magnitude=False),
+                  rfft_four_step_plain(part, *tables, magnitude=False),
                   bound_db=110.0)
     rng = np.random.default_rng(17)
     n = 256
@@ -408,10 +403,10 @@ def phase_k2c(x: torch.Tensor) -> dict:
         n1_n = _four_step_kernel_n1(n)
         row = torch.as_tensor(rng.standard_normal((1, n)).astype(np.float32),
                               device=DEVICE)
-        cn, d2n = _device_tables(n, n1_n, row.device)
         got = rfft_four_step_complex(row, n1=n1_n)
-        compare("k2c", f"N={n} n1={n1_n}", got,
-                rfft_four_step_plain(row, cn, d2n, n1_n, magnitude=False),
+        compare("k2c", f"N={n}", got,
+                rfft_four_step_plain(row, *_device_tables(n, row.device),
+                                     magnitude=False),
                 bound_db=110.0)
         exact = torch.as_tensor(np.fft.rfft(row.cpu().double().numpy()))
         compare("k2c", f"N={n} vs float64 rfft", got.cpu().to(exact.dtype),
@@ -421,10 +416,8 @@ def phase_k2c(x: torch.Tensor) -> dict:
     def kern():
         return rfft_four_step_complex(frames, n1=n1)
 
-    def plain():     # its broadcast intermediate is 256 KB a row: chunked
-        return in_chunks(
-            lambda r: rfft_four_step_plain(r, c, d2, n1, magnitude=False),
-            frames)
+    def plain():
+        return rfft_four_step_plain(frames, *tables, magnitude=False)
 
     return {"max_abs_err": err, "kern": kern, "plain": plain,
             "lib": lambda: torch.fft.rfft(frames),
@@ -442,12 +435,16 @@ def phase_k7(x: torch.Tensor) -> dict:
         row = torch.as_tensor(rng.standard_normal((1, n)).astype(np.float32),
                               device=DEVICE)
         tables = _device_tables(n, row.device)
+        exact = np.fft.rfft(row.cpu().double().numpy())
         for magnitude in (False, True):
-            compare("k7", f"N={n} n2={default_n2(n)} "
-                    f"{'|X|' if magnitude else 'X'}",
-                    rfft_four_step_tall(row, magnitude=magnitude),
+            form = "|X|" if magnitude else "X"
+            got = rfft_four_step_tall(row, magnitude=magnitude)
+            compare("k7", f"N={n} n2={default_n2(n)} {form}", got,
                     rfft_two_pass_plain(row, *tables, magnitude),
                     bound_db=110.0)
+            want = torch.as_tensor(np.abs(exact) if magnitude else exact)
+            compare("k7", f"N={n} {form} vs float64 rfft",
+                    got.cpu().to(want.dtype), want, bound_db=110.0)
         n *= 2
     nfft, hop = SPECGRAM
     frames = hann_frames(x, nfft, hop)           # (5168, 16384)

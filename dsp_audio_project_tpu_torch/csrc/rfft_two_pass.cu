@@ -1,213 +1,264 @@
-// K7 and K8: batched rfft of real rows for N = n1 * n2 >= 16384, four-step
-// in two passes through global memory, for Hopper (fp32 SIMT).
+// K7 and K8: batched rfft of real rows for N = 16384 .. 1048576 as
+// register-radix FFTs for Hopper (fp32 SIMT).
 //
 // Replaces the TPU kernels dsp_audio_project_tpu/kernels/rfft.py:
-// rfft_pallas_four_step_tall (K7, N = 16384..524288, one pass in VMEM) and
-// rfft_pallas_two_level (K8, N = 1048576, two passes through HBM).  Both
-// are the same factorisation, j = j1*n2 + j2 and k = k1 + n1*k2:
+// rfft_pallas_four_step_tall (K7, N = 16384..524288) and
+// rfft_pallas_two_level (K8, N = 1048576); both are the launcher
+// rfft_two_pass_launch.  Outputs (rows, N/2 + 1): |X| or complex64 X as
+// interleaved (re, im) floats.
 //
-//   pass 1 (column DFT + twiddle):
-//       B[k1, j2] = TW[k1, j2] * sum_j1 x[j1*n2 + j2] * W_n1^{j1 k1}
-//   pass 2 (row DFT, bins 0 .. N/2 only):
-//       X[k1 + n1*k2] = sum_j2 B[k1, j2] * W_n2^{j2 k2},  k2 < n2/2,
-//       X[N/2]        = sum_j2 B[0, j2] * (-1)^j2,
-//   then |X| (MAG) or X as interleaved (re, im) floats (complex64).
+// What bounds it on an H100: bytes.  The input is read once and X written
+// once; an fp32 FFT's ~2.5 N log2 N flops a row take a fraction of that
+// time at the SIMT rate.  The row is packed as nh = N/2 complex points,
+// z[m] = x[2m] + i x[2m+1], as in K2 (csrc/fft_radix.cuh).
 //
-// On the TPU only K8 stages B through HBM, because VMEM is small.  On the
-// H100 one N = 32768 row's B alone is 256 KB, more than a block's 227 KB
-// of shared memory, so B is staged through global memory for every N, as
-// two fp32 planes stored [j2][k1] (rows, 2, n2, n1).
+// N <= 32768: one pass.  A row of nh <= 16384 complex (<= 132 KB of fp32
+// planes) lives in shared memory and runs K2's body: ceil(log2(nh)/4)
+// Stockham passes of radix <= 16 in registers (8192 = 16 * 8 * 8 * 8,
+// 16384 = 16 * 16 * 8 * 8), 32 values a thread, one exchange between
+// passes, the untwiddle and |X| fused into the store.  This is the
+// spectrogram's N = 16384 (a 256-thread block a row, so that two rows
+// share an SM's registers where 16 values on 512 threads fit one) and the
+// long spectra's 32768.
 //
-// Both passes are direct sums, complex GEMMs per row: pass 1 is
-// (n1 x n1) @ (n1 x n2) with a real right side, pass 2 is (n1 x n2) @
-// (n2 x n2/2).  That is 2 N (n1 + n2) FMAs a row, least at the balanced
-// split n1 = n2 = sqrt(N) that the wrapper picks; what bounds them on an
-// H100 is the fp32 FMA rate (torch.fft.rfft, O(N log N), is bound by
-// bytes).  Design: one 64 x 64 output tile per block, 256 threads with a
-// 4 x 4 micro-tile each, TK = 16 deep slabs of both operands in shared
-// memory loaded as float4 (m-contiguous A^T, n-contiguous B), sums as
-// plain fp32 FMAs against fp32 tables built from float64 and read through
-// L2.  Every operand load and every store is contiguous along the tile:
-// pass 1 reads x along j2 and writes B^T along k1; pass 2 reads B^T along
-// k1, the row-DFT table along k2, and writes X along k1 (k = k1 + n1*k2).
-// The Nyquist bin k2 = n2/2 is one extra reduction over B[0, :], done by
-// warp 0 of each row's first pass-2 block, so the tiles stay 64-aligned.
-// Grids are (rows, n tiles, m tiles): rows ride grid.x (2^31 - 1), the
-// tile counts are at most 16 at N = 1048576.
+// N >= 65536: two passes through global memory on nh = n1 * n2 with
+// n2 = 2^floor(log2(nh)/2) <= 512 and n1 = nh/n2 <= 1024, j = j1 n2 + j2,
+// k = k1 + n1 k2:
+//   pass 1: for each column j2, the n1-point FFT over j1, times the
+//     twiddle W_nh^(k1 j2) (two entries of the W_nh table, W^(m mod 1024)
+//     W^(m - m mod 1024), for nh > 1024), stored as B[k1, j2].  A block
+//     takes G >= 8 consecutive columns, so every global read and write is
+//     a run of >= 64 contiguous bytes; the last register pass writes B
+//     directly.
+//   pass 2: for each row k1, the n2-point FFT over j2 of B[k1, :].  A
+//     block holds G consecutive rows k1 and their mirror rows n1 - k1,
+//     whose bins pair up: nh - (k1 + n1 k2) = (n1 - k1) + n1 (n2-1-k2).  So
+//     the untwiddle is fused into pass 2's store, and the k-ordered stores
+//     of X[k] and X[nh-k] are runs of G bins.  Row 0 pairs with itself
+//     under k2 -> n2 - k2 (the Nyquist bin X[nh] comes from Z[0]); row
+//     n1/2 pairs with itself under k2 -> n2-1-k2 and rides in block 0 in
+//     the slot of row 0's mirror.
+// B is complex nh per row (the wrapper's (rows, N) float32 scratch); at
+// N = 2^20 each pass moves about 4 N bytes a row in and out.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "fft_radix.cuh"
 
 namespace {
 
-constexpr int TM = 64;        // tile rows (k1)
-constexpr int TN = 64;        // tile columns (j2 in pass 1, k2 in pass 2)
-constexpr int TK = 16;        // contraction slab depth
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
+using fft_radix::cmul;
+using fft_radix::LastStage;
+using fft_radix::run_passes;
+using fft_radix::Stage;
+using fft_radix::store_bin;
+using fft_radix::swz;
+using fft_radix::untwiddle;
 
-__device__ __forceinline__ float4 ld4(const float* p)
+constexpr int E = 16;    // values a thread in the two-pass kernels
+
+// W_nh^m for m < nh from the W_nh table: one entry up to nh = 1024, else
+// the product of two (m = hi + lo, lo < 1024), both read through L1.
+template <int L>
+__device__ __forceinline__ float2 twiddle(const float2* __restrict__ tw, int m)
 {
-    return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ void st4(float* p, float4 v)
-{
-    *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void unpack(float4 v, float (&a)[4])
-{
-    a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
-}
-
-// Pass 1.  Grid (rows, n2 / TN, n1 / TM).  d1: (2, n1, n1) W_n1^{j1 k1}
-// (symmetric), tw: (2, n2, n1) W_N^{k1 j2} stored [j2][k1], b: (rows, 2,
-// n2, n1) B stored [j2][k1].
-__global__ void __launch_bounds__(THREADS)
-two_pass_stage1(const float* __restrict__ x, const float* __restrict__ d1,
-                const float* __restrict__ tw, float* __restrict__ b,
-                int n1, int n2)
-{
-    __shared__ __align__(16) float a_re[TK][TM];
-    __shared__ __align__(16) float a_im[TK][TM];
-    __shared__ __align__(16) float xs[TK][TN];
-
-    const int64_t n = (int64_t)n1 * n2;
-    const int64_t row = blockIdx.x;
-    const int n0 = blockIdx.y * TN;        // j2
-    const int m0 = blockIdx.z * TM;        // k1
-    const int tid = threadIdx.x;
-    const int tm = tid % 16, tn = tid / 16;
-    const int lk = tid / 16, lc = (tid % 16) * 4;   // loader: slab row, col
-    const float* xr = x + row * n;
-    const float* d1i = d1 + (int64_t)n1 * n1;
-
-    float cr[4][4] = {}, ci[4][4] = {};
-    for (int k0 = 0; k0 < n1; k0 += TK) {
-        const int64_t kk = k0 + lk;
-        st4(&a_re[lk][lc], ld4(d1 + kk * n1 + m0 + lc));
-        st4(&a_im[lk][lc], ld4(d1i + kk * n1 + m0 + lc));
-        st4(&xs[lk][lc], ld4(xr + kk * n2 + n0 + lc));
-        __syncthreads();
-#pragma unroll
-        for (int k = 0; k < TK; ++k) {
-            float ar[4], ai[4], xv[4];
-            unpack(*reinterpret_cast<const float4*>(&a_re[k][tm * 4]), ar);
-            unpack(*reinterpret_cast<const float4*>(&a_im[k][tm * 4]), ai);
-            unpack(*reinterpret_cast<const float4*>(&xs[k][tn * 4]), xv);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    cr[i][j] = fmaf(ar[i], xv[j], cr[i][j]);
-                    ci[i][j] = fmaf(ai[i], xv[j], ci[i][j]);
-                }
-        }
-        __syncthreads();
-    }
-
-    float* br = b + row * 2 * n;
-    float* bi = br + n;
-    const float* twi = tw + n;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        const int64_t off = (int64_t)(n0 + tn * 4 + j) * n1 + m0 + tm * 4;
-        float wr[4], wi[4], outr[4], outi[4];
-        unpack(ld4(tw + off), wr);
-        unpack(ld4(twi + off), wi);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            outr[i] = cr[i][j] * wr[i] - ci[i][j] * wi[i];
-            outi[i] = cr[i][j] * wi[i] + ci[i][j] * wr[i];
-        }
-        st4(br + off, make_float4(outr[0], outr[1], outr[2], outr[3]));
-        st4(bi + off, make_float4(outi[0], outi[1], outi[2], outi[3]));
-    }
-}
-
-template <bool MAG>
-__device__ __forceinline__ void store_bin(void* out, int64_t i, float re,
-                                          float im)
-{
-    if constexpr (MAG)
-        static_cast<float*>(out)[i] = sqrtf(re * re + im * im);
+    if constexpr (L <= 10)
+        return __ldg(tw + m);
     else
-        static_cast<float2*>(out)[i] = make_float2(re, im);
+        return cmul(__ldg(tw + (m & 1023)), __ldg(tw + (m & ~1023)));
 }
 
-// Pass 2.  Grid (rows, (n2/2) / TN, n1 / TM).  b: pass 1's B^T planes,
-// d2: (2, n2, n2/2) W_n2^{j2 k2} stored [j2][k2], out: (rows, N/2 + 1).
-template <bool MAG>
-__global__ void __launch_bounds__(THREADS)
-two_pass_stage2(const float* __restrict__ b, const float* __restrict__ d2,
-                void* __restrict__ out, int n1, int n2)
+template <int L, int L1>
+struct ColShape {
+    static constexpr int NH = 1 << L, N1 = 1 << L1, N2 = NH / N1;
+    static constexpr int TPC = N1 / E;                       // threads a column
+    static constexpr int G = (4096 >> L1) > 8 ? (4096 >> L1) : 8;
+    static constexpr int THREADS = G * TPC, TILES = N2 / G;
+    static constexpr int PLANE = G * N1 + ((G * N1) >> 5);
+    static constexpr size_t SMEM = 2 * (size_t)PLANE * sizeof(float);
+};
+
+// Pass 1.  Block b: row b / TILES, columns (b % TILES) * G + c, c < G.
+template <int L, int L1>
+__global__ void __launch_bounds__(ColShape<L, L1>::THREADS)
+two_pass_columns(const float2* __restrict__ z, float2* __restrict__ bout,
+                 const float2* __restrict__ tw)
 {
-    __shared__ __align__(16) float a_re[TK][TM];
-    __shared__ __align__(16) float a_im[TK][TM];
-    __shared__ __align__(16) float w_re[TK][TN];
-    __shared__ __align__(16) float w_im[TK][TN];
+    using S = ColShape<L, L1>;
+    using F = Stage<L1, E, 0>;
+    using La = LastStage<L1, E>;
+    extern __shared__ float smem[];
+    float* sre = smem;
+    float* sim = smem + S::PLANE;
+    const int c = threadIdx.x % S::G, t = threadIdx.x / S::G;
+    const int64_t row = blockIdx.x / S::TILES;
+    const int j2 = (blockIdx.x % S::TILES) * S::G + c;
+    auto ld = [&](int i) {
+        const int a = swz(i * S::G + c);
+        return make_float2(sre[a], sim[a]);
+    };
+    auto st = [&](int i, float2 v) {
+        const int a = swz(i * S::G + c);
+        sre[a] = v.x;
+        sim[a] = v.y;
+    };
 
-    const int64_t n = (int64_t)n1 * n2;
-    const int h2 = n2 / 2;
-    const int64_t row = blockIdx.x;
-    const int n0 = blockIdx.y * TN;        // k2
-    const int m0 = blockIdx.z * TM;        // k1
-    const int tid = threadIdx.x;
-    const int tm = tid % 16, tn = tid / 16;
-    const int lk = tid / 16, lc = (tid % 16) * 4;
-    const float* br = b + row * 2 * n;
-    const float* bi = br + n;
-    const float* d2i = d2 + (int64_t)n2 * h2;
-    const int64_t obase = row * (n / 2 + 1);
+    float2 v[E];
+    const float2* zr = z + row * S::NH + j2;
+#pragma unroll
+    for (int q = 0; q < F::BF; ++q)
+#pragma unroll
+        for (int r = 0; r < F::R; ++r)
+            v[q * F::R + r] = __ldg(zr + (int64_t)F::in(t, q, r) * S::N2);
+    run_passes<L1, E, 0>(v, t, tw, S::N2, ld, st);
+    float2* br = bout + row * S::NH + j2;
+#pragma unroll
+    for (int q = 0; q < La::BF; ++q)
+#pragma unroll
+        for (int r = 0; r < La::R; ++r) {
+            const int k1 = La::out(t, q, r);
+            br[(int64_t)k1 * S::N2] = cmul(v[q * La::R + r], twiddle<L>(tw, k1 * j2));
+        }
+}
 
-    if (blockIdx.y == 0 && blockIdx.z == 0 && tid < 32) {
-        // X[N/2] = sum_j2 B[0, j2] (-1)^j2.
-        float sr = 0.f, si = 0.f;
-        for (int j2 = tid; j2 < n2; j2 += 32) {
-            const float s = (j2 & 1) ? -1.f : 1.f;
-            sr = fmaf(s, br[(int64_t)j2 * n1], sr);
-            si = fmaf(s, bi[(int64_t)j2 * n1], si);
-        }
-        for (int o = 16; o > 0; o >>= 1) {
-            sr += __shfl_down_sync(0xffffffffu, sr, o);
-            si += __shfl_down_sync(0xffffffffu, si, o);
-        }
-        if (tid == 0) store_bin<MAG>(out, obase + n / 2, sr, si);
+template <int L, int L2>
+struct RowPairShape {
+    static constexpr int NH = 1 << L, N2 = 1 << L2, N1 = NH / N2;
+    static constexpr int TPR = N2 / E;                       // threads a row
+    static constexpr int G = (2048 >> L2) > 8 ? (2048 >> L2) : 8;
+    static constexpr int SLOTS = 2 * G, THREADS = SLOTS * TPR;
+    static constexpr int TILES = N1 / (2 * G);
+    static constexpr int PLANE = SLOTS * N2 + ((SLOTS * N2) >> 5) + SLOTS;
+    static constexpr size_t SMEM = 2 * (size_t)PLANE * sizeof(float);
+    static_assert(TILES >= 1, "n1 must hold two tiles of rows");
+};
+
+// Pass 2.  Block b: row b / TILES, tile p = b % TILES: slots g < G hold B
+// rows k1 = p G + g, slots G + g their mirrors n1 - k1 (slot G of tile 0:
+// row n1/2).  Writes X[k] and X[nh - k] for every k whose k1 is in the
+// tile, and tile 0 also those of row n1/2.
+template <int L, int L2, bool MAG>
+__global__ void __launch_bounds__(RowPairShape<L, L2>::THREADS)
+two_pass_rows(const float2* __restrict__ b, void* __restrict__ out,
+              const float2* __restrict__ tw, const float2* __restrict__ un)
+{
+    using S = RowPairShape<L, L2>;
+    using F = Stage<L2, E, 0>;
+    using La = LastStage<L2, E>;
+    extern __shared__ float smem[];
+    float* sre = smem;
+    float* sim = smem + S::PLANE;
+    const int64_t row = blockIdx.x / S::TILES;
+    const int p = blockIdx.x % S::TILES;
+    const int slot = threadIdx.x / S::TPR, t = threadIdx.x % S::TPR;
+    int k1;
+    if (slot < S::G) {
+        k1 = p * S::G + slot;
+    } else {
+        const int g = slot - S::G;
+        k1 = (p == 0 && g == 0) ? S::N1 / 2 : S::N1 - (p * S::G + g);
     }
+    auto at = [](int s, int i) { return swz(s * S::N2 + i) + s; };
+    auto ld = [&](int i) {
+        const int a = at(slot, i);
+        return make_float2(sre[a], sim[a]);
+    };
+    auto st = [&](int i, float2 v) {
+        const int a = at(slot, i);
+        sre[a] = v.x;
+        sim[a] = v.y;
+    };
 
-    float cr[4][4] = {}, ci[4][4] = {};
-    for (int k0 = 0; k0 < n2; k0 += TK) {
-        const int64_t kk = k0 + lk;
-        st4(&a_re[lk][lc], ld4(br + kk * n1 + m0 + lc));
-        st4(&a_im[lk][lc], ld4(bi + kk * n1 + m0 + lc));
-        st4(&w_re[lk][lc], ld4(d2 + kk * h2 + n0 + lc));
-        st4(&w_im[lk][lc], ld4(d2i + kk * h2 + n0 + lc));
-        __syncthreads();
+    float2 v[E];
+    const float2* br = b + row * S::NH + (int64_t)k1 * S::N2;
 #pragma unroll
-        for (int k = 0; k < TK; ++k) {
-            float ar[4], ai[4], wr[4], wi[4];
-            unpack(*reinterpret_cast<const float4*>(&a_re[k][tm * 4]), ar);
-            unpack(*reinterpret_cast<const float4*>(&a_im[k][tm * 4]), ai);
-            unpack(*reinterpret_cast<const float4*>(&w_re[k][tn * 4]), wr);
-            unpack(*reinterpret_cast<const float4*>(&w_im[k][tn * 4]), wi);
+    for (int q = 0; q < F::BF; ++q)
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+        for (int r = 0; r < F::R; ++r)
+            v[q * F::R + r] = __ldg(br + F::in(t, q, r));
+    run_passes<L2, E, 0>(v, t, tw, S::N1, ld, st);
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    cr[i][j] = fmaf(ar[i], wr[j], fmaf(-ai[i], wi[j], cr[i][j]));
-                    ci[i][j] = fmaf(ar[i], wi[j], fmaf(ai[i], wr[j], ci[i][j]));
-                }
+    for (int q = 0; q < La::BF; ++q)
+#pragma unroll
+        for (int r = 0; r < La::R; ++r) st(La::out(t, q, r), v[q * La::R + r]);
+    __syncthreads();
+
+    auto z_at = [&](int s, int i) {
+        const int a = at(s, i);
+        return make_float2(sre[a], sim[a]);
+    };
+    const int64_t ob = row * (S::NH + 1);
+    // The pair (k, nh - k) from its canonical side kk = min(k, nh - k).
+    auto put = [&](int k, float2 zk, float2 zm) {
+        float2 xa, xb;
+        if (k <= S::NH / 2) {
+            untwiddle(zk, zm, __ldg(un + k), xa, xb);
+        } else {
+            k = S::NH - k;
+            untwiddle(zm, zk, __ldg(un + k), xa, xb);
         }
-        __syncthreads();
+        store_bin<MAG>(out, ob + k, xa);
+        if (k != S::NH / 2) store_bin<MAG>(out, ob + S::NH - k, xb);
+    };
+    for (int idx = threadIdx.x; idx < S::G * S::N2; idx += S::THREADS) {
+        const int g = idx % S::G, k2 = idx / S::G;
+        const int kr = p * S::G + g;
+        const int k = kr + S::N1 * k2;
+        if (kr == 0) {
+            if (k > S::NH / 2) continue;       // row 0's pairs, once each
+            put(k, z_at(0, k2), z_at(0, (S::N2 - k2) & (S::N2 - 1)));
+        } else {
+            put(k, z_at(g, k2), z_at(S::G + g, S::N2 - 1 - k2));
+        }
     }
+    if (p == 0)
+        for (int k2 = threadIdx.x; k2 < S::N2 / 2; k2 += S::THREADS)
+            put(S::N1 / 2 + S::N1 * k2, z_at(S::G, k2),
+                z_at(S::G, S::N2 - 1 - k2));
+}
 
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        const int64_t k = (int64_t)(n0 + tn * 4 + j) * n1 + m0 + tm * 4;
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-            store_bin<MAG>(out, obase + k + i, cr[i][j], ci[i][j]);
+template <class K>
+int allow_smem(K kernel, size_t bytes)
+{
+    if (bytes <= 48 * 1024) return 0;
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int L, int L2, bool MAG>
+int launch_two_pass(const float* x, const float* tw, const float* un,
+                    float* b, void* out, int64_t rows, cudaStream_t s)
+{
+    constexpr int L1 = L - L2;
+    using C = ColShape<L, L1>;
+    using R = RowPairShape<L, L2>;
+    int err = allow_smem(two_pass_columns<L, L1>, C::SMEM);
+    if (err) return err;
+    err = allow_smem(two_pass_rows<L, L2, MAG>, R::SMEM);
+    if (err) return err;
+    const float2* tw2 = reinterpret_cast<const float2*>(tw);
+    two_pass_columns<L, L1><<<(unsigned)(rows * C::TILES), C::THREADS, C::SMEM, s>>>(
+        reinterpret_cast<const float2*>(x), reinterpret_cast<float2*>(b), tw2);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    two_pass_rows<L, L2, MAG><<<(unsigned)(rows * R::TILES), R::THREADS, R::SMEM, s>>>(
+        reinterpret_cast<const float2*>(b), out, tw2,
+        reinterpret_cast<const float2*>(un));
+    return (int)cudaGetLastError();
+}
+
+template <bool MAG>
+int launch(const float* x, const float* tw, const float* un, float* b,
+           void* out, int64_t rows, int n, cudaStream_t s)
+{
+    using fft_radix::launch_rows;
+    switch (n) {
+    case 16384: return launch_rows<13, 32, MAG>(x, out, tw, un, rows, s);
+    case 32768: return launch_rows<14, 32, MAG>(x, out, tw, un, rows, s);
+    case 65536: return launch_two_pass<15, 7, MAG>(x, tw, un, b, out, rows, s);
+    case 131072: return launch_two_pass<16, 8, MAG>(x, tw, un, b, out, rows, s);
+    case 262144: return launch_two_pass<17, 8, MAG>(x, tw, un, b, out, rows, s);
+    case 524288: return launch_two_pass<18, 9, MAG>(x, tw, un, b, out, rows, s);
+    case 1048576: return launch_two_pass<19, 9, MAG>(x, tw, un, b, out, rows, s);
+    default: return (int)cudaErrorInvalidValue;
     }
 }
 
@@ -215,26 +266,19 @@ two_pass_stage2(const float* __restrict__ b, const float* __restrict__ d2,
 
 extern "C" {
 
-// rfft of `rows` real rows of length n1*n2 (n1 % 64 == 0, n2 % 128 == 0)
-// into out (rows, n1*n2/2 + 1): float32 |X| when magnitude != 0, else
-// complex64.  b is a (rows, 2, n1*n2) float32 scratch for B; x, the
-// tables and b must be 16-byte aligned.  Launches pass 1 then pass 2 on
-// `stream`; returns the first nonzero cudaGetLastError() (0 on success).
-int rfft_two_pass_launch(const float* x, const float* d1, const float* tw,
-                         const float* d2, float* b, void* out, int rows,
-                         int n1, int n2, int magnitude, void* stream)
+// rfft of `rows` real rows of length n (a power of two in 16384..1048576;
+// x 8-byte aligned) into out (rows, n/2 + 1): float32 |X| when magnitude
+// != 0, else complex64.  tw: n/2 complex64 W_{n/2}^m; un: n/4 + 1
+// complex64 e^{-2 pi i k / n}; b: a (rows, n) float32 scratch for B (not
+// read for n <= 32768, which runs one pass).  Launches on `stream`;
+// returns the first nonzero cudaGetLastError() (0 on success).
+int rfft_two_pass_launch(const float* x, const float* tw, const float* un,
+                         float* b, void* out, int rows, int n, int magnitude,
+                         void* stream)
 {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const dim3 g1(rows, n2 / TN, n1 / TM);
-    two_pass_stage1<<<g1, THREADS, 0, s>>>(x, d1, tw, b, n1, n2);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const dim3 g2(rows, n2 / 2 / TN, n1 / TM);
-    if (magnitude)
-        two_pass_stage2<true><<<g2, THREADS, 0, s>>>(b, d2, out, n1, n2);
-    else
-        two_pass_stage2<false><<<g2, THREADS, 0, s>>>(b, d2, out, n1, n2);
-    return (int)cudaGetLastError();
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return magnitude ? launch<true>(x, tw, un, b, out, rows, n, s)
+                     : launch<false>(x, tw, un, b, out, rows, n, s);
 }
 
 const char* kernel_error_string(int err)

@@ -13,13 +13,13 @@ Every TPU kernel of the JAX package (each function that reaches
 | id | JAX function (file:line) | port status |
 |----|--------------------------|-------------|
 | K1 | kernels/fir_class.py:731 polyphase_fir_class_rect_cat | ported: fir_class.py + csrc/fir_cat.cu (CUDA) |
-| K2 | kernels/rfft.py:125 rfft_pallas_four_step | ported: rfft.py + csrc/rfft_four_step.cu (CUDA), magnitude and complex forms |
+| K2 | kernels/rfft.py:125 rfft_pallas_four_step | ported: rfft.py + csrc/rfft_four_step.cu (CUDA, register-radix FFT on csrc/fft_radix.cuh), magnitude and complex forms |
 | K3 | kernels/fir_class.py:928 polyphase_fir_class_rect_frames | ported: fir_class.py on the frames kernel, csrc/fir_cat.cu fir_frames_launch (CUDA) |
 | K4 | kernels/fir_class.py:1042 polyphase_fir_class_frames | ported: fir_class.py on the frames kernel (CUDA) |
 | K5 | kernels/fir_shear.py:167 polyphase_fir_shear_frames | ported: fir_shear.py on the frames kernel (CUDA) |
 | K6 | kernels/fir_class.py:312 polyphase_fir_class_flat | ported: fir_class.py on the frames kernel, flat view (CUDA) |
-| K7 | kernels/rfft.py:327 rfft_pallas_four_step_tall | ported: rfft_two_pass.rfft_four_step_tall + csrc/rfft_two_pass.cu (CUDA, two passes) |
-| K8 | kernels/rfft.py:476 rfft_pallas_two_level | ported: rfft_two_pass.rfft_two_level, the same two passes (CUDA) |
+| K7 | kernels/rfft.py:327 rfft_pallas_four_step_tall | ported: rfft_two_pass.rfft_four_step_tall + csrc/rfft_two_pass.cu (CUDA, register-radix FFT: one pass up to N = 32768, two above) |
+| K8 | kernels/rfft.py:476 rfft_pallas_two_level | ported: rfft_two_pass.rfft_two_level, the same kernel's two passes (CUDA) |
 | K9 | kernels/eq_finish.py:50 eq_finish_pallas | ported: eq_finish.py + csrc/eq_finish.cu (CUDA) |
 | E1 | kernels/experiments/fir.py:61 polyphase_fir | ported: fir_class.polyphase_fir on the frames kernel (CUDA) |
 | E2a | kernels/experiments/iir.py:100 block_end_states | ported: experiments/iir.py + csrc/iir_block.cu (CUDA); iir_path='pallas' |

@@ -6,8 +6,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface (no PyTorch headers), so
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so a stale
-``.so`` is never loaded.  The build directory is ``_build/`` inside the
+The library name carries a hash of the source, of every shared header
+``csrc/*.cuh`` (a source may include any of them) and of the flags, so a
+stale ``.so`` is never loaded.  The build directory is ``_build/`` inside the
 package (git-ignored).  Nothing is downloaded; a host without ``nvcc``
 raises with a clear message.
 """
@@ -54,9 +55,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to: the name and a hash of the
+    source, the headers ``csrc/*.cuh`` and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc_cmd(nvcc: str, name: str, out: pathlib.Path) -> list:

@@ -1,89 +1,55 @@
-"""K2: batched rfft of real rows, four-step — CUDA kernel, wrappers, plain version.
+"""K2: batched rfft of real rows, N = 256..8192 — CUDA kernel, wrappers, plain version.
 
 Replaces ``dsp_audio_project_tpu/kernels/rfft.py:125 rfft_pallas_four_step``
 in both forms: ``rfft_four_step_magnitude`` (|X|, the spectrum op's shape)
 and ``rfft_four_step_complex`` (complex64 X, the STFT's), each with its own
-``launches`` counter.  With N = n1*n2, j = j1*n2 + j2 and k = k1 + n1*k2:
+``launches`` counter.  The CUDA kernel (``csrc/rfft_four_step.cu`` on the
+shared body of ``csrc/fft_radix.cuh``) is bound by bytes, not operations:
+it reads each row once as nh = N/2 packed complex points (z[m] = x[2m] +
+i x[2m+1]), runs the nh-point FFT as ceil(log2(nh)/4) Stockham passes of
+radix <= 16 held in registers (1024 = 16 * 8 * 8 at N = 2048), one
+exchange through swizzled shared memory between passes, with fp32 twiddle
+tables built in float64 (``fft_radix.radix_tables``), and fuses the
+packed-real untwiddle and |X| into its store.  A 256-thread block holds
+max(1, 4096/nh) rows; resident blocks overlap one another's loads and
+passes (no persistent grid, no cp.async prefetch).
 
-    B[k1, j2]     = sum_j1 x[j1*n2 + j2] * C[k1, j1, j2]   (column DFT + twiddle)
-    X[k1 + n1*k2] = sum_j2 B[k1, j2] * W_n2^{j2*k2}        (row DFT)
-
-for the N/2+1 real-spectrum bins.  ``_four_step_tables`` is the JAX
-package's host table builder (float64 -> float32) without the bf16 hi/lo
-split: the CUDA kernel (``csrc/rfft_four_step.cu``, one body, the store
-chosen at compile time) and the plain version both run fp32.  The split
-n1 = min(32, N/128) is the JAX one, so the tables are identical; the TPU's
-"n2 a lane multiple" rule does not bind the CUDA kernel, which is tested at
-every power of two in 256..8192.
+``n1`` is still validated, because it is the JAX plan's split
+(``ops/fft._four_step_kernel_n1``), but it no longer binds the kernel's
+own plan — as ``split_subtiles`` on K5.  The plain version
+(``fft_radix.rfft_radix_plain``) runs the same packing, radix plan, tables
+and untwiddle in torch.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 
-import numpy as np
 import torch
 
-from ..utils.device import device_tables
 from . import _build
+from .fft_radix import radix_device_tables as _device_tables, rfft_radix_plain
 
 MIN_N, MAX_N = 256, 8192
-_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 _LAUNCHERS = {"rfft_mag_launch": _ARGS, "rfft_complex_launch": _ARGS}
 
 
-@functools.lru_cache(maxsize=None)
-def _four_step_tables(n: int, n1: int):
-    """(c (2, n1*n1, n2), d2 (n2, 2*n2)) float32, as the JAX package builds them."""
-    n2 = n // n1
-    d1 = np.exp(-2j * np.pi * np.outer(np.arange(n1), np.arange(n1)) / n1)
-    tw = np.exp(-2j * np.pi * np.outer(np.arange(n1), np.arange(n2)) / n)
-    # C[k1, j1, j2] = d1[k1, j1] * tw[k1, j2]: step-1 DFT and twiddle in one
-    # coefficient vector per (k1, j1).
-    c = d1[:, :, None] * tw[:, None, :]
-    c = np.stack([c.real, c.imag]).reshape(2, n1 * n1, n2).astype(np.float32)
-    d2 = np.exp(-2j * np.pi * np.outer(np.arange(n2), np.arange(n2)) / n2)
-    d2 = np.concatenate([d2.real, d2.imag], axis=1).astype(np.float32)
-    return c, d2
-
-
-def _device_tables(n: int, n1: int, device: torch.device):
-    """(c, d2) on ``device`` (cached)."""
-    return device_tables(_four_step_tables, n, n1, device=device)
-
-
-def rfft_four_step_plain(x: torch.Tensor, c: torch.Tensor, d2: torch.Tensor,
-                         n1: int, magnitude: bool = True) -> torch.Tensor:
-    """Plain torch version: the same four steps as fp32 products.
+def rfft_four_step_plain(x: torch.Tensor, tw: torch.Tensor, un: torch.Tensor,
+                         magnitude: bool = True) -> torch.Tensor:
+    """Plain torch version: the kernel's radix plan, tables and untwiddle.
 
     ``x`` (rows, N) float32 -> (rows, N//2 + 1) magnitudes (float32) or,
     with ``magnitude=False``, the complex64 spectrum.
     """
-    rows, n = x.shape
-    n2 = n // n1
-    k2max = n2 // 2 + 1                       # k2 range covering bins 0..N/2
-    x3 = x.reshape(rows, 1, n1, n2)
-    cc = c.reshape(2, n1, n1, n2)
-    br = (x3 * cc[0]).sum(dim=2)              # (rows, n1, n2)
-    bi = (x3 * cc[1]).sum(dim=2)
-    d2r = d2[:, :k2max]
-    d2i = d2[:, n2:n2 + k2max]
-    xr = br @ d2r - bi @ d2i                  # (rows, n1, k2max)
-    xi = br @ d2i + bi @ d2r
-    # hypot, not sqrt(xr^2 + xi^2): torch's CPU sqrt kernel can return
-    # ~2e-4-relative values on its first multithreaded call in a process
-    # (ROADMAP Queue 3).
-    out = torch.hypot(xr, xi) if magnitude else torch.complex(xr, xi)
-    # X[k1 + n1*k2]: interleave and crop to the N/2+1 real bins.
-    return out.transpose(1, 2).reshape(rows, n1 * k2max)[:, : n // 2 + 1]
+    return rfft_radix_plain(x, tw, un, magnitude)
 
 
-def _launch(name, x, c, d2, out, n, n1):
+def _launch(name, x, tw, un, out, n):
     lib = _build.load("rfft_four_step", _LAUNCHERS)
     with torch.cuda.device(x.device):
         err = getattr(lib, name)(
-            x.data_ptr(), c.data_ptr(), d2.data_ptr(), out.data_ptr(),
-            x.shape[0], n, n1, torch.cuda.current_stream(x.device).cuda_stream,
+            x.data_ptr(), tw.data_ptr(), un.data_ptr(), out.data_ptr(),
+            x.shape[0], n, torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check(lib, err, name)
 
@@ -106,24 +72,27 @@ def _four_step(x: torch.Tensor, n1: int, magnitude: bool, wrapper):
     x2 = x.reshape(-1, n)
     if x2.shape[0] >= 2**31:
         raise ValueError(f"{x2.shape[0]} rows exceed the grid's 2^31 - 1")
-    c, d2 = _device_tables(n, n1, x.device)
+    tw, un = _device_tables(n, x.device)
     if x.device.type == "cpu":
-        out = rfft_four_step_plain(x2, c, d2, n1, magnitude)
+        out = rfft_four_step_plain(x2, tw, un, magnitude)
     else:
         out = torch.empty((x2.shape[0], n // 2 + 1), device=x.device,
                           dtype=torch.float32 if magnitude else torch.complex64)
         if x2.shape[0]:
+            if x2.data_ptr() % 8:           # the kernel reads float2 pairs
+                x2 = x2.clone()
             _launch("rfft_mag_launch" if magnitude else "rfft_complex_launch",
-                    x2, c, d2, out if magnitude else torch.view_as_real(out),
-                    n, n1)
+                    x2, tw, un, out if magnitude else torch.view_as_real(out),
+                    n)
             wrapper.launches += 1
     return out.reshape(lead + (n // 2 + 1,))
 
 
 def rfft_four_step_magnitude(x: torch.Tensor, *, n1: int) -> torch.Tensor:
-    """|rfft| of real (..., N) float32 -> (..., N//2 + 1) float32, four-step.
+    """|rfft| of real (..., N) float32 -> (..., N//2 + 1) float32 (K2).
 
-    N must be a power of two in 256..8192 with n1 dividing it.  A CPU
+    N must be a power of two in 256..8192 with n1 dividing it (the JAX
+    plan's split, checked and not used by the kernel).  A CPU
     tensor runs the plain version; a CUDA tensor launches the kernel;
     anything else raises.
     """
@@ -131,8 +100,8 @@ def rfft_four_step_magnitude(x: torch.Tensor, *, n1: int) -> torch.Tensor:
 
 
 def rfft_four_step_complex(x: torch.Tensor, *, n1: int) -> torch.Tensor:
-    """rfft of real (..., N) float32 -> (..., N//2 + 1) complex64, four-step
-    (K2's complex form, the STFT's); the contract of
+    """rfft of real (..., N) float32 -> (..., N//2 + 1) complex64 (K2's
+    complex form, the STFT's); the contract of
     ``rfft_four_step_magnitude``."""
     return _four_step(x, n1, False, rfft_four_step_complex)
 

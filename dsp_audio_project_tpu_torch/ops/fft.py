@@ -7,8 +7,8 @@ matmul forms (``fft_four_step``, ``rfft_matmul``).  The routing:
 ``_rfft_kernel_plan`` sends every power of two from 256 to 1048576 to a
 ported kernel, as the JAX plan sends it to a Pallas kernel — K2
 (``kernels/rfft.py``) for 256..8192, K7 (``'tall'``) for 16384..524288,
-K8 (``'two_level'``) for 1048576, the last two on the port's balanced
-split (``kernels/rfft_two_pass.py``).  A planned size on a CUDA tensor
+K8 (``'two_level'``) for 1048576, the last two on the port's own
+register-radix plan (``kernels/rfft_two_pass.py``).  A planned size on a CUDA tensor
 launches its kernel and never falls back; on a CPU tensor the kernel's
 wrapper runs its plain version.  Other sizes run the torch butterfly, as
 the JAX package runs its XLA butterfly there.  Sizes must be powers of two,
@@ -208,7 +208,7 @@ def _rfft_kernel_plan(n: int):
     """The kernel a batched-rfft size routes to: ('four_step', n1) for
     256..8192, ('tall',) for 16384..524288, ('two_level',) for 1048576,
     else None — the JAX plan's kinds and ranges.  The last two take no
-    split: their wrappers use the port's balanced one."""
+    split: their wrappers use the port's own plan."""
     n1 = _four_step_kernel_n1(n)
     if n1 is not None:
         return ("four_step", n1)

@@ -12,8 +12,10 @@ products and one add, in another order) and > 110 dB for K2 (fp32,
 different orders; small bins carry the relative error); the cat and frames
 chains on the card vs on the CPU (plain versions): > 110 dB for z, y and
 the spectra.  K2 complex, K7 and K8 vs their plain versions and float64
-numpy: max abs error < 1e-5 * max|X| (fp32 sums of at most 1024 terms in
-different orders).  The analysis routes each launch their kernel, and a
+numpy: max abs error < 1e-5 * max|X| (fp32 radix FFTs, ~2e-7 against
+float64), also at row counts that leave a block part empty, on a view at
+an odd float offset, and K2 complex at the STFT's 41344 rows against
+torch.fft.rfft.  The analysis routes each launch their kernel, and a
 kernel that cannot be built raises for every planned size.
 """
 from __future__ import annotations
@@ -102,8 +104,7 @@ def test_rfft_kernel_matches_plain(cuda, n):
     before = rfft_four_step_magnitude.launches
     got = rfft_four_step_magnitude(x, n1=n1)
     assert rfft_four_step_magnitude.launches == before + 1
-    c, d2 = _device_tables(n, n1, cuda)
-    ref = rfft_four_step_plain(x, c, d2, n1)
+    ref = rfft_four_step_plain(x, *_device_tables(n, cuda))
     torch.cuda.synchronize()
     assert snr_db(host(ref), host(got)) > 110
     exact = np.abs(np.fft.rfft(x.cpu().double().numpy()))
@@ -122,8 +123,7 @@ def test_rfft_complex_kernel_matches_plain(cuda, n):
     before = rfft_four_step_complex.launches
     got = rfft_four_step_complex(x, n1=n1)
     assert rfft_four_step_complex.launches == before + 1
-    c, d2 = _device_tables(n, n1, cuda)
-    ref = rfft_four_step_plain(x, c, d2, n1, magnitude=False)
+    ref = rfft_four_step_plain(x, *_device_tables(n, cuda), magnitude=False)
     torch.cuda.synchronize()
     assert got.dtype == torch.complex64 and got.shape == ref.shape
     assert rel_err(ref.cpu().numpy(), got.cpu().numpy()) < 1e-5
@@ -149,6 +149,76 @@ def test_two_pass_kernels_match_plain(cuda, n):
         assert rel_err(ref.cpu().numpy(), got.cpu().numpy()) < 1e-5
         want = np.abs(exact) if magnitude else exact
         assert rel_err(want, got.cpu().numpy()) < 1e-5
+
+
+def rfft_wrapper(n, magnitude):
+    """The planned kernel's wrapper for N, as a one-argument call."""
+    if n <= 8192:
+        fn = rfft_four_step_magnitude if magnitude else rfft_four_step_complex
+        return fn, lambda x: fn(x, n1=_four_step_kernel_n1(n))
+    fn = (two_pass.rfft_two_level if n == 1048576
+          else two_pass.rfft_four_step_tall)
+    return fn, lambda x: fn(x, magnitude=magnitude)
+
+
+def check_rfft(x, got, magnitude):
+    """got vs the plain version and float64 numpy: max abs error < 1e-5 *
+    max|X| for both."""
+    n = x.shape[-1]
+    plain = (rfft_four_step_plain if n <= 8192
+             else two_pass.rfft_two_pass_plain)
+    tables = (_device_tables if n <= 8192 else two_pass._device_tables)(
+        n, x.device)
+    ref = plain(x.reshape(-1, n).contiguous(), *tables, magnitude)
+    exact = np.fft.rfft(x.reshape(-1, n).cpu().double().numpy())
+    got = got.reshape(-1, n // 2 + 1).cpu().numpy()
+    assert rel_err(ref.cpu().numpy(), got) < 1e-5
+    assert rel_err(np.abs(exact) if magnitude else exact, got) < 1e-5
+
+
+@pytest.mark.parametrize("n,rows", [(256, 1), (256, 37), (2048, 1),
+                                    (2048, 3), (2048, 24), (2048, 7),
+                                    (8192, 3), (16384, 3), (32768, 1),
+                                    (65536, 3), (1048576, 1)])
+def test_rfft_kernels_at_row_counts(cuda, n, rows):
+    """Row counts 1, 3 and 24, and ones that are not a multiple of the rows
+    a block holds (32 at N = 256, 4 at 2048), for each planned kernel."""
+    x = torch.as_tensor(make_x(rows, n, seed=n + rows), device=cuda)
+    for magnitude in (True, False):
+        fn, call = rfft_wrapper(n, magnitude)
+        before = fn.launches
+        got = call(x)
+        assert fn.launches == before + 1
+        torch.cuda.synchronize()
+        assert got.shape == (rows, n // 2 + 1)
+        check_rfft(x, got, magnitude)
+
+
+@pytest.mark.parametrize("n", [256, 2048, 16384, 65536])
+def test_rfft_kernels_take_a_view_at_an_odd_offset(cuda, n):
+    """A contiguous view that starts one float into its storage (so not
+    8-byte aligned) gives the same spectrum."""
+    buf = torch.empty(2 * n + 1, device=cuda)
+    x = buf[1:].view(2, n)
+    x.copy_(torch.as_tensor(make_x(2, n, seed=n), device=cuda))
+    assert x.data_ptr() % 8 == 4
+    for magnitude in (True, False):
+        got = rfft_wrapper(n, magnitude)[1](x)
+        torch.cuda.synchronize()
+        check_rfft(x, got, magnitude)
+
+
+def test_k2_complex_at_the_stft_shape(cuda):
+    """The STFT's 41344 rows of 2048 against torch.fft.rfft (max abs error
+    <= 1e-5 * max|X|)."""
+    rng = np.random.default_rng(41344)
+    x = torch.as_tensor(rng.standard_normal((41344, 2048)).astype(np.float32),
+                        device=cuda)
+    got = rfft_four_step_complex(x, n1=16)
+    want = torch.fft.rfft(x)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    assert err <= 1e-5, err
 
 
 def test_unplanned_sizes_run_the_butterfly(cuda):

@@ -5,11 +5,11 @@ precision: ``rfft_pallas_four_step(magnitude=False)`` (K2),
 ``rfft_pallas_four_step_tall`` (K7) and ``rfft_pallas_two_level`` (K8).
 Tolerances, as max abs error over max|X|: < 5e-5 against the JAX kernels
 (their row-DFT tables, and K7's D1 at n1 = 1024, are bf16 hi/lo pairs,
-~16 bits) and < 1e-5 against float64 ``np.fft.rfft`` (fp32 sums of at
-most 1024 terms).  Also: the routing plan against the JAX plan at every
-power of two from 4 to 4194304, the port's fp32 tables against the
-float64 tables and the JAX ones, the torch butterfly and matmul forms
-against the JAX ones.  The CUDA kernels are compared with these plain
+~16 bits) and < 1e-5 against float64 ``np.fft.rfft`` (the port's fp32
+radix FFT, ~2e-7).  Also: the routing plan against the JAX plan at every
+power of two from 4 to 4194304, the torch butterfly and matmul forms
+against the JAX ones.  The radix tables and the two-pass pairing are
+tested in tests/test_torch_rfft_radix.py.  The CUDA kernels are compared with these plain
 versions on the card in tests/test_torch_gpu.py.
 """
 from __future__ import annotations
@@ -24,7 +24,7 @@ from dsp_audio_project_tpu.kernels import rfft as jrfft
 from dsp_audio_project_tpu.ops import fft as jfft
 from dsp_audio_project_tpu_torch.kernels.rfft import rfft_four_step_complex
 from dsp_audio_project_tpu_torch.kernels.rfft_two_pass import (
-    _two_pass_tables, default_n2, rfft_four_step_tall, rfft_two_level,
+    rfft_four_step_tall, rfft_two_level,
 )
 from dsp_audio_project_tpu_torch.ops import fft as tfft
 
@@ -72,7 +72,7 @@ def test_k7_plain_matches_jax_kernel(n, r, n2):
 
 
 def test_k8_plain_matches_jax_kernel():
-    n = 262144      # the smallest split K8 tiles, n2 = 512 = the port's
+    n = 262144      # the smallest size K8 tiles (JAX n2 = 512)
     x = rows(1, n, seed=3)
     want = jrfft.rfft_pallas_two_level(jnp.asarray(x), n2=512,
                                        magnitude=True, precision=HI,
@@ -96,37 +96,6 @@ def test_plan_kinds_match_jax():
             assert got == (want if want[0] == "four_step" else (want[0],))
     for n in (3000, 16383, 0):
         assert tfft._rfft_kernel_plan(n) is None
-
-
-@pytest.mark.parametrize("n,n2", [(16384, 128), (131072, 256),
-                                  (524288, 512)])
-def test_two_pass_tables(n, n2):
-    assert default_n2(n) == n2
-    n1 = n // n2
-    d1, tw, d2 = _two_pass_tables(n)
-
-    def planes(z):
-        return np.stack([z.real, z.imag]).astype(np.float32)
-
-    w = np.exp(-2j * np.pi * np.outer(np.arange(n1), np.arange(n1)) / n1)
-    assert np.array_equal(d1, planes(w))
-    w = np.exp(-2j * np.pi * np.outer(np.arange(n2), np.arange(n1)) / n)
-    assert np.array_equal(tw, planes(w))
-    w = np.exp(-2j * np.pi * np.outer(np.arange(n2), np.arange(n2 // 2)) / n2)
-    assert np.array_equal(d2, planes(w))
-    # The JAX tables: f32 (or a bf16 hi/lo pair at n1 > 512) D1 and TW, a
-    # bf16 pair D2 (2, 2, k2, j2) over all n2 columns.
-    jd1, jtw, jd2 = jrfft._four_step_tall_tables(n, n2)
-    jd1 = jd1.astype(np.float32)
-    if jd1.ndim == 4:
-        jd1 = jd1[0] + jd1[1]
-    else:
-        assert np.array_equal(d1, jd1)
-    assert np.abs(d1 - jd1).max() <= 2.0 ** -15
-    assert np.array_equal(tw, jtw)
-    jd2 = jd2.astype(np.float32)
-    jd2 = (jd2[0] + jd2[1])[:, :, : n2 // 2]
-    assert np.abs(d2 - jd2).max() <= 2.0 ** -15
 
 
 @pytest.mark.parametrize("n", [1, 2, 8, 64])
