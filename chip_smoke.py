@@ -15,15 +15,18 @@ Phases, one or more lines each:
   1. device: card name, ``nvidia-smi`` name and power limit, TF32 off;
   2. build: every CUDA kernel from csrc/ with nvcc, one process per source,
      all started together (seconds);
-  3. [k1] K1 (EQ-fused FIR) vs its plain torch version at the serving shape;
+  3. [k1] K1 (EQ-fused FIR, 3xTF32 on the tensor cores) vs its plain fp32
+     torch version at the serving shape;
   4. [k2] K2 (register-radix |rfft|) vs its plain version at (24, 2048),
      and vs its plain version and float64 np.fft.rfft at one row of every
      power of two 256..8192; [k2c] K2's complex form the same way, at 2048
      rows of the STFT's (41344, 2048) frames and one row of each N;
-  5. [k3] the frames FIR kernel (K3-K6, E1) vs its plain version at the
-     serving shape, and each entry point that runs it (fir_frames 'rect',
-     'class', 'shear', the flat K6 forward, fir_path='pallas') once at a
-     small shape: each must launch the kernel and agree;
+  5. [k3] the frames FIR kernel (K1's body with V = P) vs its plain version
+     at the serving shape, and each entry point that runs it (fir_frames
+     'rect' K3, 'class' K4, 'shear' K5, the flat K6 and ``forward_flat``,
+     E1 directly and as fir_path='pallas', E3, E4, E5) at a small shape and
+     at the serving shape, the serving runs counted: each must launch the
+     kernel and agree (> 120 dB);
   6. [k9] the EQ finish kernel vs its plain version at the cat path's and
      the frames path's serving shapes and at a U % 4 != 0 plan (441/480);
   7. [k7] K7 (one pass up to N = 32768, two above) vs its plain version
@@ -55,10 +58,9 @@ Phases, one or more lines each:
      another order); [e7] E7 at the serving flat shape (y padded to 8 x
      2,949,120), its own counted run, vs its plain version and the
      oracle's z (>= 60 dB); [e6] E6 vs its plain version and float64
-     np.fft.rfft at one row of every N from 4 to 32768 and at 65536 (the
-     two-pass route), then its own counted run at the STFT's (41344, 2048)
-     frames; [e345] E3, E4 and E5, each its own counted run at a small
-     shape: each must launch the frames kernel and agree;
+     np.fft.rfft (>= 135 dB) at one row of every N from 4 to 32768 and at
+     65536 (the two-pass route), then its own counted run at the STFT's
+     (41344, 2048) frames;
  13. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs;
      the plain E2 versions, an 8192-step host loop, median of 2 after 2):
      the chains and analysis paths per call (per call, and per call of 20
@@ -66,7 +68,7 @@ Phases, one or more lines each:
      either finish in turns, and each kernel beside its plain version and
      one PyTorch library call computing the same function (``library_ms``;
      the port never calls it).  ``--profile`` adds device time by kernel
-     (torch.profiler) for each chain and analysis path.
+     (torch.profiler) for each chain and analysis path, and for E6 and E7.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  The third line from the end is the card's name and power
@@ -76,13 +78,17 @@ record
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"},
 ...]}: ``launches`` sums the kernel's launches over the main-path runs of
 [slice], [frames], [analysis], [explicit] and the entry points' own runs
-in [e7], [e6] and [e345] (for K7 and K8, calls of the two-pass
-launcher, each of which starts both passes, as the JAX K8's two
-``pallas_call``s are one kernel); ``bound_ms`` is the larger of the
-operations over the H100's fp32 peak (67 TFLOP/s, an FMA is 2; an rfft
-counts 2.5 N log2 N a row; E2 and E7 count their recurrences' and
-products' multiply-adds) and the bytes (each input read once, each
-output written once) over 3.35 TB/s, from this run's shapes.  The last
+in [k3] (serving shape), [e7] and [e6] (for K7 and K8, calls of the
+two-pass launcher, each of which starts both passes, as the JAX K8's two
+``pallas_call``s are one kernel; K3-K6, E1 and E3-E5 rows all time the one
+frames kernel through their entry points); ``bound_ms`` is the larger of
+the operations over the H100's peak for their type and the bytes (each
+input read once, each output written once) over 3.35 TB/s, from this
+run's shapes.  The windowed FIR (K1 and the frames rows) counts three
+TF32 products a multiply-add (its fp32-accurate split) at 495 TFLOP/s
+dense TF32, the [time] line adds its fp32 SIMT bound; the rest count
+fp32 operations at 67 TFLOP/s (an FMA is 2; an rfft 2.5 N log2 N a row; E2
+and E7 their recurrences' and products' multiply-adds).  The last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.  Any failed phase raises, so the script exits nonzero
 without those lines; it also fails when no CUDA device is visible.
@@ -115,6 +121,7 @@ SPECGRAM = (16384, 4096)    # nfft, hop of the [analysis] spectrogram
 LONG_NFFT = 32768           # pipe(..., with_spectra=True) spectra (K7)
 HUGE_NFFT = 1 << 20         # magnitude_spectrum (K8)
 PEAK_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores (data sheet)
+PEAK_TF32 = 495e12      # H100 SXM dense TF32 on the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s (data sheet)
 DEVICE = "cuda"
 
@@ -204,10 +211,23 @@ def back_to_back_ms(fn, calls: int = REPS) -> float:
     return start.elapsed_time(end) / calls
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """(least ms the card could take, what binds it)."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float,
+          peak: float = PEAK_FLOPS) -> tuple[float, str]:
+    """(least ms the card could take, what binds it): the operations at
+    ``peak`` or the bytes at PEAK_BYTES, the larger."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def fir_bound(rows: int, frames: int, W: int, V: int, n: int):
+    """The windowed FIR's bound at fp32 accuracy: three TF32 products of
+    rows*frames x W x V at the tensor cores' rate against x, the operator
+    and the output moved once; the fp32 SIMT bound of the same work, for
+    the [time] line; and the three products' flops."""
+    macs = rows * frames * W * V
+    nbytes = 4.0 * (rows * n + W * V + rows * frames * V)
+    return (bound(3 * 2.0 * macs, nbytes, PEAK_TF32),
+            bound(2.0 * macs, nbytes), 3 * 2.0 * macs)
 
 
 def compare(tag: str, name: str, got: torch.Tensor, ref: torch.Tensor,
@@ -316,11 +336,11 @@ def phase_k1(pipe, x: torch.Tensor) -> dict:
     torch.cuda.synchronize()
     err = max(compare("k1", "y0", y0, y0_ref), compare("k1", "inj", inj, inj_ref))
     lib = conv_yardstick(x, g2, plan.s, f_pad, -plan.lo)
-    V = g2.shape[1]
-    b = bound(2.0 * x.shape[0] * f_pad * plan.W * V,
-              4.0 * (x.numel() + g2.numel() + x.shape[0] * f_pad * V))
+    b, simt, flops = fir_bound(x.shape[0], f_pad, plan.W, g2.shape[1],
+                               x.shape[-1])
     return {"max_abs_err": err, "kern": kern, "plain": plain, "lib": lib,
-            "bound": b, "y0": y0, "inj": inj}
+            "bound": b, "simt_bound": simt, "flops": flops, "y0": y0,
+            "inj": inj}
 
 
 def phase_k2() -> dict:
@@ -498,13 +518,21 @@ def phase_k8(x: torch.Tensor) -> dict:
             "bound": rfft_bound(rows.shape[0], n, 4)}
 
 
-def phase_k3(pipe, x: torch.Tensor, small: torch.Tensor) -> dict:
+def phase_k3(pipe, x: torch.Tensor, small: torch.Tensor):
+    """The frames kernel vs its plain version at the serving shape, then
+    every entry point that runs it (K3 'rect', K4 'class', K5 'shear', K6
+    flat and ``forward_flat``, E1 as fir_path='pallas', E3-E5) at a small
+    shape and at the serving shape: each must launch the kernel and agree.
+    The serving runs are counted.  (k3 record entry, {tag: record entry}
+    of K4-K6, E1, E3-E5, counts)."""
     import dsp_audio_project_tpu_torch as pt
-    from dsp_audio_project_tpu_torch.kernels import (
-        fir_frames, launch_counts, reset_launch_counts,
+    from dsp_audio_project_tpu_torch.kernels import fir_frames
+    from dsp_audio_project_tpu_torch.kernels.experiments import (
+        polyphase_fir_dma, polyphase_fir_rect_rowdma,
+        polyphase_fir_rect_splitbank,
     )
     from dsp_audio_project_tpu_torch.kernels.fir_class import (
-        fir_frames_kernel, fir_frames_plain, frame_grid,
+        fir_frames_kernel, fir_frames_plain, frame_grid, polyphase_fir,
         polyphase_fir_class_flat,
     )
 
@@ -523,40 +551,82 @@ def phase_k3(pipe, x: torch.Tensor, small: torch.Tensor) -> dict:
     y, ref = kern(), plain()
     torch.cuda.synchronize()
     err = compare("k3", "frames", y, ref)
-    # Every entry point that runs the kernel, once, at a small shape.
-    ns = cfg.src.output_length(small.shape[-1])
-    want = fir_frames_plain(small, G, plan.s, -(-ns // plan.P), -plan.lo)
-    want_flat = want.reshape(small.shape[0], -1)[:, :ns]
     pallas = pt.AudioPipeline(pt.PipelineConfig(
         src=cfg.src, eq=cfg.eq, kernels=pt.KernelConfig(fir_path="pallas")),
         device=DEVICE)
+    # name: (entry point (x, n_out) -> frames or flat y, its counter, tag
+    # of its record row or None)
     routes = {
-        "fir_frames rect": lambda: fir_frames(small, plan, ns, kernel="rect"),
-        "fir_frames class": lambda: fir_frames(small, plan, ns,
-                                               kernel="class"),
-        "fir_frames shear": lambda: fir_frames(small, plan, ns,
-                                               kernel="shear"),
-        "flat (K6)": lambda: polyphase_fir_class_flat(small, plan, ns),
-        "fir_path='pallas' (E1)": lambda: pallas._forward(small, FS)[1],
+        "fir_frames rect (K3)": (
+            lambda a, ns: fir_frames(a, plan, ns, kernel="rect"),
+            "fir_frames_kernel", None),
+        "fir_frames class (K4)": (
+            lambda a, ns: fir_frames(a, plan, ns, kernel="class"),
+            "polyphase_fir_class_frames", "k4"),
+        "fir_frames shear (K5)": (
+            lambda a, ns: fir_frames(a, plan, ns, kernel="shear"),
+            "polyphase_fir_shear_frames", "k5"),
+        "flat (K6)": (lambda a, ns: polyphase_fir_class_flat(a, plan, ns),
+                      "polyphase_fir_class_flat", "k6"),
+        "forward_flat (K6)": (lambda a, ns: pipe.forward_flat(a, FS)[1],
+                              "polyphase_fir_class_flat", None),
+        "E1 polyphase_fir": (lambda a, ns: polyphase_fir(a, plan, ns),
+                             "polyphase_fir", "e1"),
+        "fir_path='pallas' (E1)": (lambda a, ns: pallas._forward(a, FS)[1],
+                                   "polyphase_fir", None),
+        "E3 polyphase_fir_dma": (
+            lambda a, ns: polyphase_fir_dma(a, plan, ns),
+            "polyphase_fir_dma", "e3"),
+        "E4 polyphase_fir_rect_splitbank": (
+            lambda a, ns: polyphase_fir_rect_splitbank(a, plan, ns),
+            "polyphase_fir_rect_splitbank", "e4"),
+        "E5 polyphase_fir_rect_rowdma": (
+            lambda a, ns: polyphase_fir_rect_rowdma(a, plan, ns),
+            "polyphase_fir_rect_rowdma", "e5"),
     }
-    for name, fn in routes.items():
-        reset_launch_counts()
-        got = fn()
-        torch.cuda.synchronize()
-        launched = launch_counts()["fir_frames_kernel"]
-        if launched < 1:
-            raise RuntimeError(f"{name} did not launch the frames kernel")
-        want_r = want if got.ndim == 3 else want_flat
-        s = snr_db(want_r, got)
-        log(f"[k3] {name} {tuple(got.shape)}: launched {launched}, snr vs "
-            f"plain {s:.1f} dB (bound 120)")
-        if not s > 120.0:
-            raise RuntimeError(f"{name} disagrees with the plain version")
+    entries, total = {}, None
+    for where, a in (("small", small), ("serving", x)):
+        ns = cfg.src.output_length(a.shape[-1])
+        nf = -(-ns // plan.P)
+        want = (ref[:, :nf] if a is x
+                else fir_frames_plain(a, G, plan.s, nf, -plan.lo))
+        want_flat = want.reshape(a.shape[0], -1)[:, :ns]
+        for name, (fn, counter, tag) in routes.items():
+            got, counts = run_counted(functools.partial(fn, a, ns))
+            if counts[counter] < 1 or counts["fir_frames_kernel"] < 1:
+                raise RuntimeError(f"{name} did not launch the frames kernel")
+            want_r = want if got.ndim == 3 else want_flat
+            route_err = compare("k3", f"{where} {name} (launched "
+                                f"{counts[counter]})", got, want_r)
+            if where == "serving":
+                total = counts if total is None else {
+                    k: total[k] + counts[k] for k in total}
+                if tag is not None:
+                    flat = got.ndim == 2
+                    entries[tag] = {
+                        "max_abs_err": route_err,
+                        "kern": functools.partial(fn, x, ns),
+                        "plain": functools.partial(
+                            _frames_plain, x, G, plan, nf,
+                            ns if flat else None),
+                        "lib": conv_yardstick(x, G, plan.s, nf, -plan.lo),
+                        "bound": fir_bound(x.shape[0], nf, plan.W, plan.P,
+                                           x.shape[-1])[0]}
     lib = conv_yardstick(x, G, plan.s, f_pad, -plan.lo)
-    b = bound(2.0 * x.shape[0] * f_pad * plan.W * plan.P,
-              4.0 * (x.numel() + G.numel() + y.numel()))
-    return {"max_abs_err": err, "kern": kern, "plain": plain, "lib": lib,
-            "bound": b, "y": y}
+    b, simt, flops = fir_bound(x.shape[0], f_pad, plan.W, plan.P,
+                               x.shape[-1])
+    return ({"max_abs_err": err, "kern": kern, "plain": plain, "lib": lib,
+             "bound": b, "simt_bound": simt, "flops": flops, "y": y},
+            entries, total)
+
+
+def _frames_plain(x, G, plan, frames: int, flat_len):
+    """The plain frames of an entry point: (B, frames, P), or viewed flat
+    and cropped to ``flat_len``."""
+    from dsp_audio_project_tpu_torch.kernels.fir_class import fir_frames_plain
+
+    y = fir_frames_plain(x, G, plan.s, frames, -plan.lo)
+    return y if flat_len is None else y.reshape(x.shape[0], -1)[:, :flat_len]
 
 
 def phase_k9(pipe, k1: dict, k3: dict) -> dict:
@@ -948,17 +1018,17 @@ def phase_e6(x: torch.Tensor):
                               device=DEVICE)
         got = rb.rfft_butterfly(row)
         if n <= rb.MAX_N:
-            tables = rb.device_tables(rb._butterfly_tables, n, device=DEVICE)
-            compare("e6", f"N={n}", got, rb.rfft_butterfly_plain(row, *tables),
-                    bound_db=110.0)
+            compare("e6", f"N={n}", got,
+                    rb.rfft_butterfly_plain(row, *rb.radix_device_tables(
+                        n, row.device)), bound_db=110.0)
         exact = torch.as_tensor(np.fft.rfft(row.cpu().double().numpy()))
         compare("e6", f"N={n} vs float64 rfft"
                 + (" (two-pass route)" if n > rb.MAX_N else ""),
-                got.cpu().to(exact.dtype), exact, bound_db=110.0)
+                got.cpu().to(exact.dtype), exact, bound_db=135.0)
         n *= 2
     nfft, hop = STFT
     frames = hann_frames(x, nfft, hop)           # (41344, 2048)
-    tables = rb.device_tables(rb._butterfly_tables, nfft, device=DEVICE)
+    tables = rb.radix_device_tables(nfft, frames.device)
     got, counts = run_counted(lambda: rb.rfft_butterfly(frames))
     require("e6", counts, ("rfft_butterfly",))
 
@@ -971,34 +1041,6 @@ def phase_e6(x: torch.Tensor):
     return ({"max_abs_err": err, "kern": lambda: rb.rfft_butterfly(frames),
              "plain": plain, "lib": lambda: torch.fft.rfft(frames),
              "bound": rfft_bound(frames.shape[0], nfft, 8)}, counts)
-
-
-def phase_e345(pipe, small: torch.Tensor) -> dict:
-    """E3, E4 and E5, each its own counted run at a small shape: each must
-    launch the frames kernel and agree with its plain version."""
-    from dsp_audio_project_tpu_torch.kernels.experiments import (
-        polyphase_fir_dma, polyphase_fir_rect_rowdma,
-        polyphase_fir_rect_splitbank,
-    )
-    from dsp_audio_project_tpu_torch.kernels.fir_class import fir_frames_plain
-
-    plan = pipe._plan()
-    ns = pipe.config.src.output_length(small.shape[-1])
-    want = fir_frames_plain(small, pipe.G, plan.s, -(-ns // plan.P), -plan.lo)
-    total = None
-    for fn, ref in ((polyphase_fir_dma, want.reshape(small.shape[0], -1)[:, :ns]),
-                    (polyphase_fir_rect_splitbank, want),
-                    (polyphase_fir_rect_rowdma, want)):
-        got, counts = run_counted(lambda: fn(small, plan, ns))
-        require("e345", counts, (fn.__name__, "fir_frames_kernel"))
-        s = snr_db(ref, got)
-        log(f"[e345] {fn.__name__} {tuple(got.shape)}: snr vs plain {s:.1f} "
-            "dB (bound 120)")
-        if not s > 120.0:
-            raise RuntimeError(f"{fn.__name__} disagrees with the plain version")
-        total = counts if total is None else {k: total[k] + counts[k]
-                                              for k in total}
-    return total
 
 
 def host_ms(fn, reps: int = REPS) -> tuple[float, float, float]:
@@ -1068,7 +1110,7 @@ def main() -> None:
     k1 = phase_k1(pipe, x)
     k2 = phase_k2()
     k2c = phase_k2c(x)
-    k3 = phase_k3(pipe, x, small)
+    k3, k3_routes, k3_counts = phase_k3(pipe, x, small)
     k9 = phase_k9(pipe, k1, k3)
     del k1["y0"], k1["inj"], k3["y"]
     k7 = phase_k7(x)
@@ -1086,7 +1128,7 @@ def main() -> None:
     e7, e7_counts = phase_e7(cfg, y_flat, want)
     del y_flat
     e6, e6_counts = phase_e6(x)
-    runs += [e7_counts, e6_counts, phase_e345(pipe, small)]
+    runs += [e7_counts, e6_counts, k3_counts]
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
 
     chains = {
@@ -1117,7 +1159,8 @@ def main() -> None:
         f"{finish['torch']} ms per call")
 
     kernels = {"k1": k1, "k2": k2, "k3": k3, "k9": k9, "k2c": k2c,
-               "k7": k7, "k8": k8, "e2a": e2a, "e2b": e2b, "e7": e7, "e6": e6}
+               "k7": k7, "k8": k8, "e2a": e2a, "e2b": e2b, "e7": e7, "e6": e6,
+               **k3_routes}
     timings = {}
     for tag, k in kernels.items():
         # The plain E2 loops over 8192 steps on the host: fewer runs.
@@ -1129,12 +1172,19 @@ def main() -> None:
         t = timings[tag]
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
+        simt = ("" if "simt_bound" not in k else
+                f"; fp32 SIMT bound {k['simt_bound'][0]:.4f} ms "
+                f"({k['simt_bound'][1]}); the three TF32 products at "
+                f"{k['flops'] / t['ms'] / 1e9:.1f} TFLOP/s")
         log(f"[time] {tag}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms (median of {reps}), library {lib}, "
-            f"bound {k['bound'][0]:.4f} ms ({k['bound'][1]})")
+            f"bound {k['bound'][0]:.4f} ms ({k['bound'][1]}){simt}")
 
     if profile_too:
-        phase_profile(chains)
+        phase_profile({**chains,
+                       "E6 rfft_butterfly at the STFT's (41344, 2048) frames":
+                           e6["kern"],
+                       "E7 equalize_seq_flat at 8 x 2,949,120": e7["kern"]})
 
     rows = (
         ("k1", "polyphase_fir_class_rect_cat", "csrc/fir_cat.cu",
@@ -1143,6 +1193,20 @@ def main() -> None:
          "dsp_audio_project_tpu/kernels/rfft.py:125"),
         ("k3", "fir_frames_kernel", "csrc/fir_cat.cu",
          "dsp_audio_project_tpu/kernels/fir_class.py:928"),
+        ("k4", "polyphase_fir_class_frames", "csrc/fir_cat.cu",
+         "dsp_audio_project_tpu/kernels/fir_class.py:1042"),
+        ("k5", "polyphase_fir_shear_frames", "csrc/fir_cat.cu",
+         "dsp_audio_project_tpu/kernels/fir_shear.py:167"),
+        ("k6", "polyphase_fir_class_flat", "csrc/fir_cat.cu",
+         "dsp_audio_project_tpu/kernels/fir_class.py:312"),
+        ("e1", "polyphase_fir", "csrc/fir_cat.cu",
+         "dsp_audio_project_tpu/kernels/experiments/fir.py:61"),
+        ("e3", "polyphase_fir_dma", "csrc/fir_cat.cu",
+         "dsp_audio_project_tpu/kernels/experiments/fir_dma.py:70"),
+        ("e4", "polyphase_fir_rect_splitbank", "csrc/fir_cat.cu",
+         "dsp_audio_project_tpu/kernels/experiments/fir_splitbank.py:103"),
+        ("e5", "polyphase_fir_rect_rowdma", "csrc/fir_cat.cu",
+         "dsp_audio_project_tpu/kernels/experiments/fir_rowdma.py:89"),
         ("k9", "eq_finish", "csrc/eq_finish.cu",
          "dsp_audio_project_tpu/kernels/eq_finish.py:50"),
         ("k2c", "rfft_four_step_complex", "csrc/rfft_four_step.cu",

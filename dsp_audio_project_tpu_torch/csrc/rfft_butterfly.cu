@@ -1,107 +1,54 @@
-// E6: the radix-2 butterfly rfft of real rows for Hopper, fp32 SIMT.
+// E6: the butterfly rfft of real rows for Hopper, on the register-radix
+// FFT of csrc/fft_radix.cuh (fp32 SIMT).
 //
 // Replaces the TPU kernel dsp_audio_project_tpu/kernels/experiments/
-// rfft_butterfly.py: rfft_pallas (body _fft_stages_kernel).  For a real row
-// x of N = 2*nh points (nh a power of two, N <= 32768):
-//
-//   1. pack z[m] = x[2m] + i x[2m+1] and store it bit-reversed;
-//   2. log2(nh) radix-2 stages in place: for span h, a = z[i], b = z[i+h],
-//      t = W^pos b with W^pos = e^{-i pi pos / h}; z[i] = a + t,
-//      z[i+h] = a - t;
-//   3. the packed-real untwiddle, fused into the store (the JAX code left
-//      it outside its kernel only because Mosaic could not reverse lanes):
-//      X[k] = (Z[k] + conj Z[nh-k]) / 2 + e^{-2 pi i k / N} (Z[k] -
-//      conj Z[nh-k]) / (2i), k = 0..nh, Z[nh] = Z[0].
+// rfft_butterfly.py: rfft_pallas (body _fft_stages_kernel): for a real row
+// x of N = 2*nh points, pack z[m] = x[2m] + i x[2m+1], run an nh-point
+// complex FFT and untwiddle the packed real input, X[k] = (Z[k] + conj
+// Z[nh-k]) / 2 + e^{-2 pi i k / N} (Z[k] - conj Z[nh-k]) / (2i), k = 0..nh.
+// The TPU kernel runs the FFT as log2(nh) radix-2 stages on its lanes; this
+// kernel computes the same function by the header's plan: ceil(log2(nh)/4)
+// Stockham passes of radix <= 16 held in registers, one exchange through
+// swizzled shared memory between passes, the untwiddle fused into the store
+// (the kernel of K2 and of K7 up to N = 32768, under E6's own launcher and
+// launch count).  Above N = 32768 the wrapper runs K7's two passes.
 //
 // What bounds it on an H100, at the STFT's frames (41344 rows of 2048): it
 // reads 339 MB and writes 339 MB of complex64, 0.2023 ms at 3.35 TB/s; its
-// 2.5 N log2 N flops a row (2.3 GFLOP) take 0.034 ms at the fp32 rate.  It
-// is bound by memory, as far as its shared-memory traffic (log2 nh passes
-// over the row, each behind a __syncthreads) lets it be.
+// 2.5 N log2 N flops a row (2.3 GFLOP) take 0.034 ms at the fp32 rate.  So
+// each row is read once into registers and X written once, with no pass over
+// the row in shared memory beyond the exchanges.
 //
-// Design: a CTA holds one row (or 1024/nh rows when nh < 1024) in shared
-// memory as two planes, real and imaginary.  Stage twiddles come from one
-// table W_nh^k (k < nh/2, float64 cast once), stage s reading every
-// nh/2^(s+1)-th entry; the untwiddle from a second table of nh+1 entries.
-// The bit-reversed stores of step 1 would put a warp's 32 values in one
-// bank; shared addresses are swizzled, p ^ (top 5 bits of p), which keeps
-// runs of 32 consecutive positions on 32 banks and spreads the bit-reversed
-// ones.
+// Values a thread E: the radix-2 design's N = 4..128 need their own
+// instantiations (E must be a multiple of every pass's radix and at most
+// nh): E = nh up to nh = 16 (one thread a row, 256 rows a block), then 16;
+// N = 256..8192 use K2's E = 16, N = 16384 and 32768 K7's E = 32.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fft_radix.cuh"
 
 namespace {
 
-constexpr int THREADS = 512;
-constexpr int ROW_FLOATS = 1024;        // a CTA holds max(nh, 1024) complex
+using fft_radix::launch_rows;
 
-__device__ __forceinline__ int swz(int p, int L)
+int launch(const float* x, void* out, const float* tw, const float* un,
+           int64_t rows, int L, cudaStream_t s)
 {
-    return L >= 10 ? p ^ ((p >> (L - 5)) & 31) : p;
-}
-
-__global__ void __launch_bounds__(THREADS)
-butterfly_kernel(const float* __restrict__ x, float2* __restrict__ out,
-                 const float2* __restrict__ tw, const float2* __restrict__ un,
-                 int rows, int L, int rpc)
-{
-    extern __shared__ __align__(16) float smem[];
-    const int nh = 1 << L;
-    const int r0 = blockIdx.x * rpc;
-    const int nr = min(rpc, rows - r0);
-    float* zr = smem;                   // (rpc, nh), swizzled within a row
-    float* zi = smem + rpc * nh;
-
-    // 1. Pack and bit-reverse.
-    for (int i = threadIdx.x; i < nr * nh; i += THREADS) {
-        const int r = i >> L, m = i & (nh - 1);
-        const float2 v = __ldg(reinterpret_cast<const float2*>(
-            x + (int64_t)(r0 + r) * 2 * nh) + m);
-        const int p = r * nh + swz(L ? (int)(__brev((unsigned)m) >> (32 - L)) : 0, L);
-        zr[p] = v.x;
-        zi[p] = v.y;
-    }
-    __syncthreads();
-
-    // 2. The radix-2 stages.
-    const int hb = nh >> 1;             // butterflies per row
-    for (int s = 0; s < L; ++s) {
-        const int half = 1 << s;
-        for (int b = threadIdx.x; b < nr * hb; b += THREADS) {
-            const int r = b >> (L - 1);
-            const int q = b & (hb - 1);
-            const int pos = q & (half - 1);
-            const int i = ((q >> s) << (s + 1)) + pos;
-            const float2 w = __ldg(tw + (pos << (L - 1 - s)));
-            const int pi = r * nh + swz(i, L);
-            const int pj = r * nh + swz(i + half, L);
-            const float br = zr[pj], bi = zi[pj];
-            const float tr = br * w.x - bi * w.y;
-            const float ti = br * w.y + bi * w.x;
-            const float ar = zr[pi], ai = zi[pi];
-            zr[pi] = ar + tr;
-            zi[pi] = ai + ti;
-            zr[pj] = ar - tr;
-            zi[pj] = ai - ti;
-        }
-        __syncthreads();
-    }
-
-    // 3. The packed-real untwiddle, into the store.
-    const int nb = nh + 1;
-    for (int i = threadIdx.x; i < nr * nb; i += THREADS) {
-        const int r = i / nb, k = i - r * nb;
-        const int pa = r * nh + swz(k == nh ? 0 : k, L);
-        const int pb = r * nh + swz(k == 0 ? 0 : nh - k, L);
-        const float zkr = zr[pa], zki = zi[pa];
-        const float cr = zr[pb], ci = -zi[pb];          // conj Z[nh - k]
-        const float er = 0.5f * (zkr + cr), ei = 0.5f * (zki + ci);
-        const float dr = zkr - cr, di = zki - ci;
-        const float odr = 0.5f * di, odi = -0.5f * dr;  // -i/2 (Z[k] - conj)
-        const float2 u = __ldg(un + k);
-        out[(int64_t)(r0 + r) * nb + k] =
-            make_float2(er + (u.x * odr - u.y * odi), ei + (u.x * odi + u.y * odr));
+    switch (L) {
+    case 1: return launch_rows<1, 2, false>(x, out, tw, un, rows, s);
+    case 2: return launch_rows<2, 4, false>(x, out, tw, un, rows, s);
+    case 3: return launch_rows<3, 8, false>(x, out, tw, un, rows, s);
+    case 4: return launch_rows<4, 16, false>(x, out, tw, un, rows, s);
+    case 5: return launch_rows<5, 16, false>(x, out, tw, un, rows, s);
+    case 6: return launch_rows<6, 16, false>(x, out, tw, un, rows, s);
+    case 7: return launch_rows<7, 16, false>(x, out, tw, un, rows, s);
+    case 8: return launch_rows<8, 16, false>(x, out, tw, un, rows, s);
+    case 9: return launch_rows<9, 16, false>(x, out, tw, un, rows, s);
+    case 10: return launch_rows<10, 16, false>(x, out, tw, un, rows, s);
+    case 11: return launch_rows<11, 16, false>(x, out, tw, un, rows, s);
+    case 12: return launch_rows<12, 16, false>(x, out, tw, un, rows, s);
+    case 13: return launch_rows<13, 32, false>(x, out, tw, un, rows, s);
+    case 14: return launch_rows<14, 32, false>(x, out, tw, un, rows, s);
+    default: return (int)cudaErrorInvalidValue;
     }
 }
 
@@ -110,27 +57,14 @@ butterfly_kernel(const float* __restrict__ x, float2* __restrict__ out,
 extern "C" {
 
 // out (rows, N/2+1) complex64 as interleaved floats, from x (rows, N)
-// float32 (8-byte aligned rows), N = 2^(L+1) with 1 <= L <= 14.  tw: nh/2
-// complex64 W_nh^k; un: nh+1 complex64 e^{-2 pi i k / N}.  Launches on
-// `stream`; returns cudaGetLastError() (0 on success).
+// float32 (8-byte aligned rows), N = 2^(L+1) with 1 <= L <= 14.  tw: nh
+// complex64 W_nh^m; un: nh/2 + 1 complex64 e^{-2 pi i k / N}
+// (kernels/fft_radix.radix_tables).  Launches on `stream`; returns
+// cudaGetLastError() (0 on success).
 int rfft_butterfly_launch(const float* x, float* out, const float* tw,
                           const float* un, int rows, int L, void* stream)
 {
-    if (L < 1 || L > 14) return (int)cudaErrorInvalidValue;
-    const int nh = 1 << L;
-    const int rpc = nh < ROW_FLOATS ? ROW_FLOATS / nh : 1;
-    const size_t smem = 2 * (size_t)rpc * nh * sizeof(float);
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            butterfly_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)smem);
-        if (err != cudaSuccess) return (int)err;
-    }
-    const int grid = (rows + rpc - 1) / rpc;
-    butterfly_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        x, reinterpret_cast<float2*>(out), reinterpret_cast<const float2*>(tw),
-        reinterpret_cast<const float2*>(un), rows, L, rpc);
-    return (int)cudaGetLastError();
+    return launch(x, out, tw, un, rows, L, static_cast<cudaStream_t>(stream));
 }
 
 const char* kernel_error_string(int err)

@@ -12,7 +12,7 @@ Every TPU kernel of the JAX package (each function that reaches
 
 | id | JAX function (file:line) | port status |
 |----|--------------------------|-------------|
-| K1 | kernels/fir_class.py:731 polyphase_fir_class_rect_cat | ported: fir_class.py + csrc/fir_cat.cu (CUDA) |
+| K1 | kernels/fir_class.py:731 polyphase_fir_class_rect_cat | ported: fir_class.py + csrc/fir_cat.cu (CUDA, tensor cores: mma.sync TF32, 3xTF32 split) |
 | K2 | kernels/rfft.py:125 rfft_pallas_four_step | ported: rfft.py + csrc/rfft_four_step.cu (CUDA, register-radix FFT on csrc/fft_radix.cuh), magnitude and complex forms |
 | K3 | kernels/fir_class.py:928 polyphase_fir_class_rect_frames | ported: fir_class.py on the frames kernel, csrc/fir_cat.cu fir_frames_launch (CUDA) |
 | K4 | kernels/fir_class.py:1042 polyphase_fir_class_frames | ported: fir_class.py on the frames kernel (CUDA) |
@@ -27,7 +27,7 @@ Every TPU kernel of the JAX package (each function that reaches
 | E3 | kernels/experiments/fir_dma.py:70 polyphase_fir_dma | ported: experiments/fir_dma.py on the frames kernel (CUDA) |
 | E4 | kernels/experiments/fir_splitbank.py:103 polyphase_fir_rect_splitbank | ported: experiments/fir_splitbank.py on the frames kernel (CUDA) |
 | E5 | kernels/experiments/fir_rowdma.py:89 polyphase_fir_rect_rowdma | ported: experiments/fir_rowdma.py on the frames kernel (CUDA) |
-| E6 | kernels/experiments/rfft_butterfly.py:76 rfft_pallas | ported: experiments/rfft_butterfly.py + csrc/rfft_butterfly.cu (CUDA); K7's kernel above N = 32768 |
+| E6 | kernels/experiments/rfft_butterfly.py:76 rfft_pallas | ported: experiments/rfft_butterfly.py + csrc/rfft_butterfly.cu (CUDA, register-radix FFT on csrc/fft_radix.cuh); K7's kernel above N = 32768 |
 | E7 | kernels/experiments/iir_seq.py:127 equalize_seq_flat | ported: experiments/iir_seq.py + csrc/iir_seq.cu (CUDA) |
 
 Times on the card are in PERF.md.
@@ -45,6 +45,8 @@ from .experiments.rfft_butterfly import rfft_butterfly
 from .fir_class import (
     class_supported,
     fir_frames_kernel,
+    polyphase_fir,
+    polyphase_fir_class_flat,
     polyphase_fir_class_frames,
     polyphase_fir_class_rect_cat,
     polyphase_fir_class_rect_frames,
@@ -58,12 +60,15 @@ KERNELS = (polyphase_fir_class_rect_cat, fir_frames_kernel, eq_finish,
            rfft_four_step_tall, rfft_two_level, block_end_states,
            block_apply, equalize_seq_flat, rfft_butterfly,
            polyphase_fir_dma, polyphase_fir_rect_splitbank,
-           polyphase_fir_rect_rowdma)
+           polyphase_fir_rect_rowdma, polyphase_fir_class_frames,
+           polyphase_fir_shear_frames, polyphase_fir_class_flat,
+           polyphase_fir)
 
 
 def launch_counts() -> dict:
-    """{wrapper name: launches} for every ported kernel (E3-E5 count
-    their launches of the frames kernel, which counts them too)."""
+    """{wrapper name: launches} for every ported kernel (K4-K6, E1 and
+    E3-E5 count their launches of the frames kernel, which counts them
+    too)."""
     return {k.__name__: k.launches for k in KERNELS}
 
 

@@ -10,7 +10,7 @@ baselines.  The port keeps each one's entry point and contract:
 | E3 | fir_dma.py ``polyphase_fir_dma`` | the frames kernel (``csrc/fir_cat.cu``) |
 | E4 | fir_splitbank.py ``polyphase_fir_rect_splitbank`` | the frames kernel |
 | E5 | fir_rowdma.py ``polyphase_fir_rect_rowdma`` | the frames kernel |
-| E6 | rfft_butterfly.py ``rfft_butterfly`` (JAX ``rfft_pallas``) | ``csrc/rfft_butterfly.cu``; the two-pass kernel above N = 32768 |
+| E6 | rfft_butterfly.py ``rfft_butterfly`` (JAX ``rfft_pallas``) | ``csrc/rfft_butterfly.cu`` on the register-radix header ``csrc/fft_radix.cuh``; the two-pass kernel above N = 32768 |
 | E7 | iir_seq.py ``equalize_seq_flat`` | ``csrc/iir_seq.cu`` |
 
 E1 (``experiments/fir.py:polyphase_fir``) is ``kernels/fir_class.

@@ -16,12 +16,13 @@ from typing import TYPE_CHECKING
 
 import torch
 
-from ..fir_class import _frames, fir_frames_kernel
+from ..fir_class import _frames, counts_frames_launches
 
 if TYPE_CHECKING:
     from ...ops.src import PolyphasePlan
 
 
+@counts_frames_launches
 def polyphase_fir_dma(
     x: torch.Tensor,
     plan: PolyphasePlan,
@@ -34,10 +35,5 @@ def polyphase_fir_dma(
     """Resample (..., N) -> (..., n_out): ops/src.resample's output.  ``g``:
     the plan's G on x's device (cached from the plan when omitted)."""
     f_out = -(-n_out // plan.P)
-    before = fir_frames_kernel.launches
     y = _frames(x, plan, f_out, None, g)
-    polyphase_fir_dma.launches += fir_frames_kernel.launches - before
     return y.reshape(y.shape[:-2] + (f_out * plan.P,))[..., :n_out]
-
-
-polyphase_fir_dma.launches = 0

@@ -15,12 +15,15 @@ from typing import TYPE_CHECKING
 
 import torch
 
-from ..fir_class import fir_frames_kernel, polyphase_fir_class_rect_frames
+from ..fir_class import (
+    counts_frames_launches, polyphase_fir_class_rect_frames,
+)
 
 if TYPE_CHECKING:
     from ...ops.src import PolyphasePlan
 
 
+@counts_frames_launches
 def polyphase_fir_rect_rowdma(
     x: torch.Tensor,
     plan: PolyphasePlan,
@@ -36,12 +39,6 @@ def polyphase_fir_rect_rowdma(
     with the JAX kernel's regime check."""
     if plan.s < 8 or plan.W > 128 * plan.s:
         raise ValueError("class-kernel regime required")
-    before = fir_frames_kernel.launches
-    y = polyphase_fir_class_rect_frames(
+    return polyphase_fir_class_rect_frames(
         x, plan, n_out, pad_frames=pad_frames, num_frames=num_frames,
         pad_left=pad_left, g=g)
-    polyphase_fir_rect_rowdma.launches += fir_frames_kernel.launches - before
-    return y
-
-
-polyphase_fir_rect_rowdma.launches = 0

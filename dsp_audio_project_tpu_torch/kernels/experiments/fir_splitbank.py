@@ -16,12 +16,15 @@ from typing import TYPE_CHECKING
 
 import torch
 
-from ..fir_class import fir_frames_kernel, polyphase_fir_class_rect_frames
+from ..fir_class import (
+    counts_frames_launches, polyphase_fir_class_rect_frames,
+)
 
 if TYPE_CHECKING:
     from ...ops.src import PolyphasePlan
 
 
+@counts_frames_launches
 def polyphase_fir_rect_splitbank(
     x: torch.Tensor,
     plan: PolyphasePlan,
@@ -40,13 +43,6 @@ def polyphase_fir_rect_splitbank(
         raise ValueError("class-kernel regime required")
     if not 0 < split_at < plan.P:
         raise ValueError(f"split_at {split_at} outside (0, {plan.P})")
-    before = fir_frames_kernel.launches
-    y = polyphase_fir_class_rect_frames(
+    return polyphase_fir_class_rect_frames(
         x, plan, n_out, pad_frames=pad_frames, num_frames=num_frames,
         pad_left=pad_left, g=g)
-    polyphase_fir_rect_splitbank.launches += (fir_frames_kernel.launches
-                                              - before)
-    return y
-
-
-polyphase_fir_rect_splitbank.launches = 0

@@ -36,14 +36,24 @@ wrapper over the one kernel:
   to n_out;
 * K5 ``polyphase_fir_shear_frames`` lives in fir_shear.py.
 
-Precision: the kernel accumulates in fp32 FMAs, at least as accurate as the
-TPU's bf16x3 "fast" mode, so it serves src_fast=True and False alike; the
-wrappers take ``precision`` and ignore it.  The bf16x3 / 3xTF32 tensor-core
-version is ROADMAP work.
+The kernel runs its products on the tensor cores (mma.sync TF32) with a
+3xTF32 split: each operand v is hi = rna_tf32(v) plus lo = rna_tf32(v - hi),
+and each 8-tap step accumulates a_lo b_hi + a_hi b_lo + a_hi b_hi in fp32.
+That keeps the fp32 product's accuracy (~140 dB against float64 at the
+serving plan, where one TF32 product gives ~72 dB and the JAX package's
+bf16x3 ~108 dB), so it serves src_fast=True and False alike; the wrappers
+take ``precision`` and ignore it.  At the serving shape the kernel is bound
+by bytes and by the three products about equally (~55-57 us each on an
+H100); see the note in ``csrc/fir_cat.cu``.  ``tf32_split`` and
+``fir_frames_3xtf32`` mirror that arithmetic in plain torch for the CPU
+tests; nothing on the main path calls them, and the plain versions
+(``fir_frames_plain``, ``fir_cat_plain``) stay the fp32 product the card
+compares the kernel with.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import TYPE_CHECKING
 
@@ -123,6 +133,37 @@ def fir_frames_plain(x: torch.Tensor, g: torch.Tensor, s: int, f_pad: int,
     total = (f_pad - 1) * s + W
     xp = F.pad(x, (pad_left, max(0, total - pad_left - n)))[..., :total]
     return xp.unfold(-1, W, s) @ g
+
+
+def _tf32_rna(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: to
+    nearest on the 13 dropped mantissa bits, ties away from zero (the
+    magnitude's bit pattern plus 0x1000, then truncated); inf and NaN pass."""
+    b = t.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    mag = b & 0x7FFFFFFF
+    r = torch.where(mag >= 0x7F800000, b,
+                    ((mag + 0x1000) & 0xFFFFE000) | (b & 0x80000000))
+    return (r - ((r >> 31) << 32)).to(torch.int32).view(torch.float32)
+
+
+def tf32_split(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of float32 ``t`` as the kernel splits an operand:
+    hi = rna_tf32(t), lo = rna_tf32(t - hi); hi + lo is t to ~2^-21
+    relative (for normal t whose lo is normal too)."""
+    hi = _tf32_rna(t)
+    return hi, _tf32_rna(t - hi)
+
+
+def fir_frames_3xtf32(x: torch.Tensor, g: torch.Tensor, s: int, f_pad: int,
+                      pad_left: int) -> torch.Tensor:
+    """The kernel's arithmetic in plain torch: ``fir_frames_plain`` on the
+    TF32 halves, x_lo g_hi + x_hi g_lo + x_hi g_hi (each product exact in
+    fp32, the sums in fp32).  For the CPU tests only."""
+    xh, xl = tf32_split(x)
+    gh, gl = tf32_split(g)
+    return ((fir_frames_plain(xl, gh, s, f_pad, pad_left)
+             + fir_frames_plain(xh, gl, s, f_pad, pad_left))
+            + fir_frames_plain(xh, gh, s, f_pad, pad_left))
 
 
 def fir_cat_plain(x: torch.Tensor, g2: torch.Tensor, P: int, s: int,
@@ -279,6 +320,20 @@ def fir_frames_kernel(x: torch.Tensor, g: torch.Tensor, s: int,
 fir_frames_kernel.launches = 0
 
 
+def counts_frames_launches(entry):
+    """``entry`` (an entry point that runs the frames kernel: K4-K6, E1,
+    E3-E5) with a ``launches`` count of its launches of that kernel."""
+    @functools.wraps(entry)
+    def counted(*args, **kwargs):
+        before = fir_frames_kernel.launches
+        y = entry(*args, **kwargs)
+        counted.launches += fir_frames_kernel.launches - before
+        return y
+
+    counted.launches = 0
+    return counted
+
+
 def class_supported(plan: PolyphasePlan) -> bool:
     """The JAX class kernels' envelope (wide stride, one super-group)."""
     return plan.s >= 8 and plan.W <= 128 * plan.s
@@ -346,6 +401,7 @@ def polyphase_fir_class_rect_frames(
     return _frames(x, plan, f_out, pad_left, g)
 
 
+@counts_frames_launches
 def polyphase_fir_class_frames(
     x: torch.Tensor,
     plan: PolyphasePlan,
@@ -358,13 +414,15 @@ def polyphase_fir_class_frames(
     g: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """K4: the same contract and output as K3 (the TPU's BlockSpec staging
-    of the same function); see ``polyphase_fir_class_rect_frames``."""
+    of the same function); see ``polyphase_fir_class_rect_frames``.
+    ``launches`` counts its launches of the frames kernel."""
     return polyphase_fir_class_rect_frames(
         x, plan, n_out, precision=precision, pad_frames=pad_frames,
         num_frames=num_frames, pad_left=pad_left, g=g,
     )
 
 
+@counts_frames_launches
 def polyphase_fir_class_flat(
     x: torch.Tensor,
     plan: PolyphasePlan,
@@ -381,6 +439,7 @@ def polyphase_fir_class_flat(
     The frames kernel's (F, P) output viewed flat: the same samples as
     K3's frames.reshape(..., -1)[..., :n_out].  ``pad_out=True`` returns
     the whole (..., F_pad*P) buffer.  Requires ``class_flat_supported``.
+    ``launches`` counts its launches of the frames kernel.
     """
     if not class_flat_supported(plan):
         raise ValueError("plan geometry unsupported by the flat class kernel")
@@ -392,6 +451,7 @@ def polyphase_fir_class_flat(
     return flat if pad_out else flat[..., :n_out]
 
 
+@counts_frames_launches
 def polyphase_fir(
     x: torch.Tensor,
     plan: PolyphasePlan,
@@ -404,7 +464,8 @@ def polyphase_fir(
 
     ceil(n_out/P) frames through the frames kernel, viewed flat and cropped
     to n_out.  ``frame_tile`` is the TPU kernel's frame tile; it is
-    accepted and ignored.
+    accepted and ignored.  ``launches`` counts its launches of the frames
+    kernel.
     """
     f_out = -(-n_out // plan.P)
     y = _frames(x, plan, f_out, None, g)

@@ -16,7 +16,7 @@ from typing import TYPE_CHECKING
 
 import torch
 
-from .fir_class import _frames
+from .fir_class import _frames, counts_frames_launches
 
 if TYPE_CHECKING:
     from ..ops.src import PolyphasePlan
@@ -24,6 +24,7 @@ if TYPE_CHECKING:
 TILE_FRAMES = 128  # frames per TPU subtile
 
 
+@counts_frames_launches
 def polyphase_fir_shear_frames(
     x: torch.Tensor,
     plan: PolyphasePlan,
@@ -43,7 +44,8 @@ def polyphase_fir_shear_frames(
     ``num_frames`` and ``pad_left`` as in ``polyphase_fir_class_rect_frames``.
     ``split_subtiles`` is a TPU scheduling choice (independent shear chains
     per subtile) with identical output; it is accepted and ignored, as is
-    ``precision``.  Requires s >= 8, as the JAX kernel does.
+    ``precision``.  Requires s >= 8, as the JAX kernel does.  ``launches``
+    counts its launches of the frames kernel.
     """
     s = plan.s
     if s < 8:

@@ -6,8 +6,13 @@ has none:
 
     python -m pytest tests/test_torch_gpu.py -q --noconftest
 
-Tolerances: > 120 dB for K1 and the frames kernel (fp32 FMAs vs cuBLAS
-fp32, sums of <= 496 terms in different orders), > 120 dB for K9 (d <= 12
+Tolerances: > 120 dB for K1 and the frames kernel (3xTF32 tensor-core
+products, ~135-140 dB against float64, vs cuBLAS fp32; sums of <= 496
+terms in different orders), at the plans 160/147, 441/480, 320/441 and 3/2
+and at the edges of the kernel's geometry (batch 1 and 3, 1, 127 and
+18,433 frames, pad_left 0 and 500, a view at an odd float offset, a stride
+too wide for the span in shared memory, s = 3 through ``pt.resample`` on a
+strided view), > 120 dB for K9 (d <= 12
 products and one add, in another order) and > 110 dB for K2 (fp32,
 different orders; small bins carry the relative error); the cat and frames
 chains on the card vs on the CPU (plain versions): > 110 dB for z, y and
@@ -15,8 +20,11 @@ the spectra.  K2 complex, K7 and K8 vs their plain versions and float64
 numpy: max abs error < 1e-5 * max|X| (fp32 radix FFTs, ~2e-7 against
 float64), also at row counts that leave a block part empty, on a view at
 an odd float offset, and K2 complex at the STFT's 41344 rows against
-torch.fft.rfft.  The analysis routes each launch their kernel, and a
-kernel that cannot be built raises for every planned size.
+torch.fft.rfft.  E6 at every N from 4 to 65536 (the two-pass kernel above
+32768): vs its plain version, and vs float64 at >= 135 dB and max abs
+error < 1e-5 * max|X|.  The analysis routes each launch their kernel, and
+a kernel that cannot be built raises, for every planned rfft size, the
+FIR launchers and E6.
 """
 from __future__ import annotations
 
@@ -247,6 +255,25 @@ def test_planned_sizes_raise_when_the_kernel_cannot_build(cuda, monkeypatch):
             rfft_magnitude(x)
 
 
+def test_fir_and_e6_raise_when_the_kernel_cannot_build(cuda, monkeypatch):
+    from dsp_audio_project_tpu_torch.kernels.experiments import rfft_butterfly as rb
+
+    def refuse(name, launchers):
+        raise RuntimeError(f"build of {name} refused")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    plan = make_plan(160, 147)
+    x = torch.zeros(2, 4000, device=cuda)
+    with pytest.raises(RuntimeError, match="refused"):
+        fir_frames_kernel(x, plan_operator(plan, cuda), plan.s, 8, -plan.lo)
+    with pytest.raises(RuntimeError, match="refused"):
+        polyphase_fir_class_rect_cat(x, plan, 4354, None,
+                                     g2=cat_g2(plan, cuda))
+    for n in (4, 2048, 32768):
+        with pytest.raises(RuntimeError, match="refused"):
+            rb.rfft_butterfly(torch.zeros(2, n, device=cuda))
+
+
 @pytest.mark.parametrize("route", ["stft", "spectrogram", "with_spectra",
                                    "magnitude_spectrum"])
 def test_analysis_routes_launch_their_kernel(cuda, route):
@@ -328,6 +355,77 @@ def test_frames_kernel_matches_plain(cuda, L, M):
     assert y.shape == ref.shape == (2, f, plan.P)
     assert snr_db(host(ref), host(y)) > 120
 
+
+
+def cat_g2(plan, device, d=10):
+    """G2 = G @ [I | w] with a seeded (P, d) w: K1's operator shape at any
+    plan, including those whose output rate leaves no EQ band active."""
+    w = 0.1 * np.random.default_rng(plan.P).standard_normal((plan.P, d))
+    return torch.as_tensor(cat_operator(plan.G, np.hstack([np.eye(plan.P), w])),
+                           device=device)
+
+
+# (batch, n, frames, pad_left or None for -plan.lo, float offset of x, L/M)
+FIR_EDGES = {
+    "batch 1": (1, 20000, None, None, 0, (160, 147)),
+    "batch 3": (3, 20000, None, None, 0, (160, 147)),
+    "1 frame": (2, 20000, 1, None, 0, (160, 147)),
+    "127 frames": (2, 20000, 127, None, 0, (160, 147)),
+    "18433 frames": (1, 2 * FS * 30, 18433, None, 0, (160, 147)),
+    "pad_left 0": (2, 20000, None, 0, 0, (160, 147)),
+    "pad_left 500": (2, 20000, None, 500, 0, (160, 147)),
+    "odd float offset": (2, 20000, None, None, 3, (160, 147)),
+    "441/480 at an offset": (3, 20000, None, None, 1, (441, 480)),
+    "streamed windows (160/1001)": (2, 200000, None, None, 1, (160, 1001)),
+}
+
+
+@pytest.mark.parametrize("case", list(FIR_EDGES))
+def test_fir_kernels_at_edge_geometries(cuda, case):
+    """Both launchers (frames: G; cat: G2 split into y0 | inj) against their
+    plain versions at the edges of the tiling: ragged frame blocks, batch
+    rows, zero padding on both sides, x at an address that is not 16-byte
+    aligned, and a stride too wide for the span in shared memory (the
+    streamed-window path)."""
+    batch, n, frames, pad_left, offset, (L, M) = FIR_EDGES[case]
+    plan = make_plan(L, M)
+    buf = torch.as_tensor(make_x(1, batch * n + offset, seed=len(case))[0],
+                          device=cuda)
+    x = buf[offset:].view(batch, n)              # contiguous, maybe misaligned
+    if frames is None:
+        frames = -(-pt.SRCConfig(L=L, M=M).output_length(n) // plan.P)
+    if pad_left is None:
+        pad_left = -plan.lo
+    g = plan_operator(plan, cuda)
+    y = fir_frames_kernel(x, g, plan.s, frames, pad_left)
+    ref = fir_frames_plain(x, g, plan.s, frames, pad_left)
+    torch.cuda.synchronize()
+    assert y.shape == ref.shape == (batch, frames, plan.P)
+    assert snr_db(host(ref), host(y)) > 120
+    g2 = cat_g2(plan, cuda)
+    y0, inj = polyphase_fir_class_rect_cat(x, plan, 0, None, g2=g2,
+                                           num_frames=frames,
+                                           pad_left=pad_left)
+    y0r, injr = fir_cat_plain(x, g2, plan.P, plan.s, y0.shape[-2], pad_left)
+    torch.cuda.synchronize()
+    assert snr_db(host(y0r), host(y0)) > 120
+    assert snr_db(host(injr), host(inj)) > 120
+
+
+def test_resample_s3_on_a_strided_view(cuda):
+    """s = 3 (10/3) through ``pt.resample``, which makes a strided view
+    contiguous before the frames kernel: vs the same call on the CPU."""
+    cfg = pt.SRCConfig(L=10, M=3)
+    wide = torch.as_tensor(make_x(2, 2 * FS, seed=21), device=cuda)
+    x = wide[:, ::2]
+    assert not x.is_contiguous()
+    before = fir_frames_kernel.launches
+    y, fs_out = pt.resample(x, FS, cfg)
+    assert fir_frames_kernel.launches == before + 1
+    y_cpu, _ = pt.resample(x.cpu(), FS, cfg)
+    torch.cuda.synchronize()
+    assert fs_out == cfg.output_rate(FS) and y.shape == y_cpu.shape
+    assert snr_db(host(y_cpu), host(y)) > 120
 
 def test_frames_routes_launch_the_kernel(cuda):
     plan = make_plan(160, 147)
@@ -477,10 +575,11 @@ def test_iir_seq_kernel_matches_plain(cuda, block, unroll, sb, rows):
     assert snr_db(host(ref), host(y)) > 110
 
 
-@pytest.mark.parametrize("n", [4, 8, 64, 1024, 2048, 32768, 65536])
+@pytest.mark.parametrize("n", [1 << k for k in range(2, 17)])
 def test_rfft_butterfly_matches_plain(cuda, n):
     """E6 vs its plain version and float64 numpy: max abs error < 1e-5 *
-    max|X|; above N = 32768 the two-pass kernel (K7) runs instead."""
+    max|X| and >= 135 dB against float64; above N = 32768 the two-pass
+    kernel (K7) runs instead."""
     from dsp_audio_project_tpu_torch.kernels.experiments import rfft_butterfly as rb
 
     x = torch.as_tensor(make_x(3, n, seed=n), device=cuda)
@@ -493,12 +592,13 @@ def test_rfft_butterfly_matches_plain(cuda, n):
         assert counts["rfft_four_step_tall"] == 1
     else:
         assert counts["rfft_butterfly"] == 1
-        ref = rb.rfft_butterfly_plain(
-            x, *rb.device_tables(rb._butterfly_tables, n, device=cuda))
+        ref = rb.rfft_butterfly_plain(x, *rb.radix_device_tables(n, cuda))
         assert rel_err(ref.cpu().numpy(), got.cpu().numpy()) < 1e-5
     assert got.dtype == torch.complex64 and got.shape == (3, n // 2 + 1)
     exact = np.fft.rfft(x.cpu().double().numpy())
     assert rel_err(exact, got.cpu().numpy()) < 1e-5
+    as_real = torch.view_as_real(got.cpu()).numpy().ravel()
+    assert snr_db(np.stack([exact.real, exact.imag], -1).ravel(), as_real) >= 135
 
 
 def test_fir_experiments_launch_the_frames_kernel(cuda):
