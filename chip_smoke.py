@@ -53,12 +53,12 @@ Phases, one or more lines each:
      (E1), E2a, E2b and K2 must launch; z, y and the spectra >= 60 dB
      against the oracle outputs of [slice];
  12. [e2] E2a and E2b vs their plain versions on that path's own 2816
-     blocks of 8192 (> 80 dB and max abs err <= 1e-3 * max|ref|: 8192
-     dependent float32 steps through poles at radius ~0.996, summed in
-     another order); [e7] E7 at the serving flat shape (y padded to 8 x
+     blocks of 8192 (> 80 dB and max abs err <= 1e-3 * max|ref|: the
+     plain version runs 8192 dependent float32 steps through poles at
+     radius ~0.996); [e7] E7 at the serving flat shape (y padded to 8 x
      2,949,120), its own counted run, vs its plain version and the
-     oracle's z (>= 60 dB); [e6] E6 vs its plain version and float64
-     np.fft.rfft (>= 135 dB) at one row of every N from 4 to 32768 and at
+     oracle's z (>= 60 dB), and a second run bitwise equal to the first;
+     [e6] E6 vs its plain version and float64 np.fft.rfft (>= 135 dB) at one row of every N from 4 to 32768 and at
      65536 (the two-pass route), then its own counted run at the STFT's
      (41344, 2048) frames;
  13. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs;
@@ -87,8 +87,13 @@ input read once, each output written once) over 3.35 TB/s, from this
 run's shapes.  The windowed FIR (K1 and the frames rows) counts three
 TF32 products a multiply-add (its fp32-accurate split) at 495 TFLOP/s
 dense TF32, the [time] line adds its fp32 SIMT bound; the rest count
-fp32 operations at 67 TFLOP/s (an FMA is 2; an rfft 2.5 N log2 N a row; E2
-and E7 their recurrences' and products' multiply-adds).  The last
+fp32 operations at 67 TFLOP/s (an FMA is 2; an rfft 2.5 N log2 N a row;
+E2a, E2b and E7 the multiply-adds of the group algebra their kernel runs,
+at the group length U that needs the fewest: per sample d for the
+injection and d*d/U for the Horner pass, and for E2b and E7 (U+1)/2 for
+the triangular FIR product and d for the readout; E7 adds its look-back
+and the A^{gU} sigma fold a block; the [time] line adds the same count at
+the kernels' own U).  The last
 line is {"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}.  Any failed phase raises, so the script exits nonzero
 without those lines; it also fails when no CUDA device is visible.
@@ -270,11 +275,8 @@ def phase_build() -> None:
     from dsp_audio_project_tpu_torch.kernels.eq_finish import (
         _LAUNCHERS as EQ_FINISH,
     )
-    from dsp_audio_project_tpu_torch.kernels.experiments.iir import (
+    from dsp_audio_project_tpu_torch.kernels.experiments.iir_group import (
         _LAUNCHERS as IIR_BLOCK,
-    )
-    from dsp_audio_project_tpu_torch.kernels.experiments.iir_seq import (
-        _LAUNCHERS as IIR_SEQ,
     )
     from dsp_audio_project_tpu_torch.kernels.experiments.rfft_butterfly import (
         _LAUNCHERS as BUTTERFLY,
@@ -291,7 +293,7 @@ def phase_build() -> None:
 
     libs = (("fir_cat", FIR_CAT), ("eq_finish", EQ_FINISH),
             ("rfft_four_step", RFFT), ("rfft_two_pass", TWO_PASS),
-            ("iir_block", IIR_BLOCK), ("iir_seq", IIR_SEQ),
+            ("iir_block", IIR_BLOCK),
             ("rfft_butterfly", BUTTERFLY))
     t0 = time.perf_counter()
     _build.build([name for name, _ in libs])
@@ -920,7 +922,8 @@ def phase_explicit(cfg, x: torch.Tensor, want: list):
 
 def phase_e2(cfg, y: torch.Tensor) -> tuple[dict, dict]:
     """E2a and E2b vs their plain versions on the explicit path's own
-    blocks (y padded to K whole blocks of KernelConfig's iir_block)."""
+    blocks (y padded to K whole blocks of KernelConfig's iir_block), and
+    through the path's own row launchers on the unpadded y."""
     import torch.nn.functional as F
 
     import dsp_audio_project_tpu_torch as pt
@@ -947,19 +950,61 @@ def phase_e2(cfg, y: torch.Tensor) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     err_b = compare("e2", "E2b outputs", yk, y_ref, bound_db=E2_DB,
                     rel=E2_REL)
+    # The path's own launches: the unpadded rows (the last block ragged,
+    # zeros read past n), E2b clipped and cropped to n as it writes.
+    rows = y.contiguous()
+    er = iir.end_states_rows(rows, block, ops)
+    yr = iir.apply_rows(rows, sigma, block, ops)
+    torch.cuda.synchronize()
+    compare("e2", f"E2a on the unpadded rows (n = {n})", er, e_ref,
+            bound_db=E2_DB, rel=E2_REL)
+    compare("e2", "E2b on the unpadded rows, clipped", yr,
+            torch.clamp(y_ref.reshape(y.shape[0], -1)[:, :n], -1.0, 1.0),
+            bound_db=E2_DB, rel=E2_REL)
     chains, d = xb.shape[0] * K, e.shape[-1]
-    # Per step: s @ A^T + x B (d*d + d FMAs); E2b adds s . C + D x.
     e2a = {"max_abs_err": err_a, "lib": None, "plain_reps": 2,
            "kern": lambda: iir.block_end_states(xb, ops),
            "plain": lambda: iir.block_end_states_plain(xb, *consts[:2]),
-           "bound": bound(2.0 * chains * block * (d * d + d),
-                          4.0 * (xb.numel() + e.numel()))}
+           **algebra_bound(chains, block, d, ("inj", "horner"), 0,
+                           4.0 * (xb.numel() + e.numel()))}
     e2b = {"max_abs_err": err_b, "lib": None, "plain_reps": 2,
            "kern": lambda: iir.block_apply(xb, sigma, ops),
            "plain": lambda: iir.block_apply_plain(xb, sigma, *consts),
-           "bound": bound(2.0 * chains * block * (d * d + 2 * d + 1),
-                          4.0 * (2 * xb.numel() + sigma.numel()))}
+           **algebra_bound(chains, block, d,
+                           ("inj", "horner", "fir", "readout"), 0,
+                           4.0 * (2 * xb.numel() + sigma.numel()))}
     return e2a, e2b
+
+
+def group_fmas(block: int, d: int, U: int) -> dict:
+    """Multiply-adds a block of the group algebra at group length U: the
+    injections, the Horner pass, the triangular FIR product (U(U+1)/2 a
+    group; the ragged group's r(r+1)/2), the readout and E7's fold of
+    sigma into each group's entry state."""
+    from dsp_audio_project_tpu_torch.kernels.experiments import iir_group
+
+    G, r = iir_group.groups(block, U)
+    return {"inj": block * d, "horner": G * d * d,
+            "fir": (G - 1) * U * (U + 1) // 2 + r * (r + 1) // 2,
+            "readout": block * d, "fold": G * d * d}
+
+
+def algebra_bound(chains: int, block: int, d: int, parts, extra: int,
+                  nbytes: float) -> dict:
+    """The bound of ``chains`` blocks of the group algebra: the larger of
+    the bytes and the fewest multiply-adds of ``parts`` (plus ``extra`` a
+    block) over every group length U; beside it, for the [time] line, the
+    same count at the kernels' own U."""
+    from dsp_audio_project_tpu_torch.kernels.experiments import iir_group
+
+    def flops(U: int) -> float:
+        f = group_fmas(block, d, U)
+        return 2.0 * chains * (sum(f[p] for p in parts) + extra)
+
+    least, u_least = min((flops(U), U) for U in range(1, block + 1))
+    return {"bound": bound(least, nbytes),
+            "alg_bound": (*bound(flops(iir_group.GROUP), nbytes),
+                          iir_group.GROUP, least / PEAK_FLOPS * 1e3, u_least)}
 
 
 def phase_e7(cfg, y: torch.Tensor, want: list):
@@ -969,7 +1014,9 @@ def phase_e7(cfg, y: torch.Tensor, want: list):
     import torch.nn.functional as F
 
     from dsp_audio_project_tpu_torch import oracle
-    from dsp_audio_project_tpu_torch.kernels.experiments import iir_seq
+    from dsp_audio_project_tpu_torch.kernels.experiments import (
+        iir_group, iir_seq,
+    )
 
     sb, block, unroll = 10, 8192, 128
     ops = eq_operators(cfg, block, unroll)
@@ -987,6 +1034,11 @@ def phase_e7(cfg, y: torch.Tensor, want: list):
             xf.reshape(xf.shape[0], -1, G, unroll), *tables).reshape(xf.shape)
 
     err = compare("e7", f"flat {tuple(xf.shape)}", z, plain())
+    again = iir_seq.equalize_seq_flat(xf, ops, super_blocks=sb)
+    if not torch.equal(again, z):
+        raise RuntimeError("[e7] two runs on one input differ")
+    log("[e7] a second run on the same input: bitwise equal (the fixed "
+        "look-back window)")
     zh = z[:, :n].cpu().numpy()
     worst = min(oracle.snr_db(w[1], zh[i]) for i, w in enumerate(want))
     log(f"[e7] vs the oracle's z, min snr over {len(want)} signals "
@@ -994,10 +1046,12 @@ def phase_e7(cfg, y: torch.Tensor, want: list):
     if not worst >= 60.0:
         raise RuntimeError("[e7] output below the 60 dB oracle gate")
     K, d = L // block, tables[0].shape[1]
-    per_block = (G * unroll * d + G * (G + 1) // 2 * d * d
-                 + G * unroll * unroll + G * d * d + G * d * unroll + d * d)
-    b = bound(2.0 * xf.shape[0] * K * per_block, 4.0 * 2 * xf.numel())
-    return ({"max_abs_err": err, "lib": None, "bound": b, "plain": plain,
+    # The group algebra, the fold of sigma into each group's entry state
+    # and the look-back (W + 1 d x d products a block).
+    b = algebra_bound(xf.shape[0] * K, block, d,
+                      ("inj", "horner", "fir", "readout", "fold"),
+                      (iir_group.WINDOW + 1) * d * d, 4.0 * 2 * xf.numel())
+    return ({"max_abs_err": err, "lib": None, **b, "plain": plain,
              "kern": lambda: iir_seq.equalize_seq_flat(xf, ops,
                                                        super_blocks=sb)},
             counts)
@@ -1172,13 +1226,18 @@ def main() -> None:
         t = timings[tag]
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
-        simt = ("" if "simt_bound" not in k else
+        note = ("" if "simt_bound" not in k else
                 f"; fp32 SIMT bound {k['simt_bound'][0]:.4f} ms "
                 f"({k['simt_bound'][1]}); the three TF32 products at "
                 f"{k['flops'] / t['ms'] / 1e9:.1f} TFLOP/s")
+        if "alg_bound" in k:
+            ms, by, u, least, u_least = k["alg_bound"]
+            note = (f"; the group algebra's operations {least:.4f} ms at "
+                    f"the fewest (U = {u_least}), bound {ms:.4f} ms ({by}) "
+                    f"at the kernel's U = {u}")
         log(f"[time] {tag}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms (median of {reps}), library {lib}, "
-            f"bound {k['bound'][0]:.4f} ms ({k['bound'][1]}){simt}")
+            f"bound {k['bound'][0]:.4f} ms ({k['bound'][1]}){note}")
 
     if profile_too:
         phase_profile({**chains,
@@ -1219,7 +1278,7 @@ def main() -> None:
          "dsp_audio_project_tpu/kernels/experiments/iir.py:100"),
         ("e2b", "block_apply", "csrc/iir_block.cu",
          "dsp_audio_project_tpu/kernels/experiments/iir.py:134"),
-        ("e7", "equalize_seq_flat", "csrc/iir_seq.cu",
+        ("e7", "equalize_seq_flat", "csrc/iir_block.cu",
          "dsp_audio_project_tpu/kernels/experiments/iir_seq.py:127"),
         ("e6", "rfft_butterfly", "csrc/rfft_butterfly.cu",
          "dsp_audio_project_tpu/kernels/experiments/rfft_butterfly.py:76"),

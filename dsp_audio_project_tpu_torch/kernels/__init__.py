@@ -22,13 +22,13 @@ Every TPU kernel of the JAX package (each function that reaches
 | K8 | kernels/rfft.py:476 rfft_pallas_two_level | ported: rfft_two_pass.rfft_two_level, the same kernel's two passes (CUDA) |
 | K9 | kernels/eq_finish.py:50 eq_finish_pallas | ported: eq_finish.py + csrc/eq_finish.cu (CUDA) |
 | E1 | kernels/experiments/fir.py:61 polyphase_fir | ported: fir_class.polyphase_fir on the frames kernel (CUDA) |
-| E2a | kernels/experiments/iir.py:100 block_end_states | ported: experiments/iir.py + csrc/iir_block.cu (CUDA); iir_path='pallas' |
-| E2b | kernels/experiments/iir.py:134 block_apply | ported: experiments/iir.py + csrc/iir_block.cu (CUDA); iir_path='pallas' |
+| E2a | kernels/experiments/iir.py:100 block_end_states | ported: experiments/iir.py + csrc/iir_block.cu (CUDA, the group-algebra body, END mode; tables and mirror in experiments/iir_group.py); iir_path='pallas' |
+| E2b | kernels/experiments/iir.py:134 block_apply | ported: experiments/iir.py + csrc/iir_block.cu (CUDA, the same body, APPLY mode); iir_path='pallas' |
 | E3 | kernels/experiments/fir_dma.py:70 polyphase_fir_dma | ported: experiments/fir_dma.py on the frames kernel (CUDA) |
 | E4 | kernels/experiments/fir_splitbank.py:103 polyphase_fir_rect_splitbank | ported: experiments/fir_splitbank.py on the frames kernel (CUDA) |
 | E5 | kernels/experiments/fir_rowdma.py:89 polyphase_fir_rect_rowdma | ported: experiments/fir_rowdma.py on the frames kernel (CUDA) |
 | E6 | kernels/experiments/rfft_butterfly.py:76 rfft_pallas | ported: experiments/rfft_butterfly.py + csrc/rfft_butterfly.cu (CUDA, register-radix FFT on csrc/fft_radix.cuh); K7's kernel above N = 32768 |
-| E7 | kernels/experiments/iir_seq.py:127 equalize_seq_flat | ported: experiments/iir_seq.py + csrc/iir_seq.cu (CUDA) |
+| E7 | kernels/experiments/iir_seq.py:127 equalize_seq_flat | ported: experiments/iir_seq.py + csrc/iir_block.cu (CUDA, the same body, SEQ mode: a fixed-window decoupled look-back) |
 
 Times on the card are in PERF.md.
 """

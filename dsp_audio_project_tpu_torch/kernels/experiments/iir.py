@@ -13,42 +13,31 @@ runs along each block twice:
   E2b  ``block_apply``: y_j = s . C + D x_j, s <- s A^T + x_j B from sigma,
   the block's output with no correction product.
 
-The operators are cast once to float32 from the float64 design, as the
-JAX package's ``_operator_consts`` does.  The TPU tiling (2048-block tiles,
-the in-VMEM transpose, y written over x's rows) does not carry over: the
-CUDA kernels (``csrc/iir_block.cu``) run each block on a 16-lane segment,
-lane e holding state component e and row e of A, with shuffles between
-steps.  ``block_tile`` is the TPU tile and is accepted and ignored.  The
-kernel and the plain version sum each step in different orders, so they
-agree to float32 rounding, not bit for bit.
+The CUDA body (``csrc/iir_block.cu``, shared with E7) runs the group
+algebra, not the per-sample recurrence: each block in groups of
+``iir_group.GROUP`` samples, the injections and the triangular Toeplitz FIR
+product in parallel, one serial Horner pass over the groups (tables in
+``iir_group.py``, built at the kernel's group length from ``ops.A/B/C/D``,
+whatever ``ops.unroll`` is).  ``block_tile`` is the TPU tile and is
+accepted and ignored.  The plain versions keep the per-sample recurrence
+(the yardstick); kernel and plain version agree to float32 rounding, not bit
+for bit.  ``end_states_rows`` and ``apply_rows`` are the same launches on an
+unpadded (rows, n) signal, reading zeros past n and writing the clipped
+output cropped to n: ``ops/eq.equalize_pallas`` takes them, so the pad and
+the clip are not passes of their own; they count as launches of
+``block_end_states`` and ``block_apply``.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
 from ...utils.device import device_tables
-from .. import _build
+from . import iir_group
 
 ORDERS = (2, 4, 6, 8, 10, 12)   # the kernel's d: two states per EQ band
-_LAUNCHERS = {
-    "iir_end_states_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-    + [ctypes.c_void_p],
-    "iir_apply_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-    + [ctypes.c_void_p],
-}
-
-
-@functools.lru_cache(maxsize=None)
-def _system_consts(ops) -> np.ndarray:
-    """Host float32 [A (d*d, row-major) | B | C | D]: the kernels' operand."""
-    return np.concatenate([
-        np.asarray(ops.A, np.float32).ravel(), np.asarray(ops.B, np.float32),
-        np.asarray(ops.C, np.float32), np.float32([ops.D]),
-    ])
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,6 +72,13 @@ def block_apply_plain(xb: torch.Tensor, sigma: torch.Tensor,
     return y
 
 
+def _order(ops) -> int:
+    d = ops.A.shape[0]
+    if d not in ORDERS:
+        raise ValueError(f"state order {d} not in {ORDERS}")
+    return d
+
+
 def _check(xb, ops) -> int:
     if not isinstance(xb, torch.Tensor) or xb.dtype != torch.float32:
         raise TypeError(f"xb must be a float32 tensor, got {getattr(xb, 'dtype', type(xb))}")
@@ -91,25 +87,56 @@ def _check(xb, ops) -> int:
                          f"{tuple(xb.shape)}")
     if xb.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {xb.device}")
-    d = ops.A.shape[0]
-    if d not in ORDERS:
-        raise ValueError(f"state order {d} not in {ORDERS}")
+    d = _order(ops)
     if xb.shape[0] * xb.shape[1] >= 2**31:
         raise ValueError(f"{tuple(xb.shape)}: more blocks than the grid's 2^31")
     return d
 
 
-def _launch(name, tensors, consts, chains, B, d):
-    """Launch ``name`` on the tensors' pointers, the host ``consts`` and
-    the sizes, on the current stream; raise on a launch error."""
-    lib = _build.load("iir_block", _LAUNCHERS)
-    dev = tensors[0].device
-    with torch.cuda.device(dev):
-        err = getattr(lib, name)(
-            *(t.data_ptr() for t in tensors), consts.ctypes.data,
-            chains, B, d, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(lib, err, name)
+def end_states_rows(x: torch.Tensor, block: int, ops) -> torch.Tensor:
+    """E2a on the blocks of a (rows, n) signal (rows may be strided, the
+    samples contiguous), zeros past n: (rows, K, d), K = ceil(n / block).
+    A CUDA tensor launches the kernel (a ``block_end_states`` launch); a
+    CPU tensor runs the plain version."""
+    rows, n = x.shape
+    K = -(-n // block)
+    d = _order(ops)
+    if x.device.type == "cpu":
+        xb = torch.nn.functional.pad(x, (0, K * block - n))
+        a_t, b, _, _ = device_tables(_plain_consts, ops, device=x.device)
+        return block_end_states_plain(xb.reshape(rows, K, block), a_t, b)
+    end = torch.empty((rows, K, d), dtype=torch.float32, device=x.device)
+    if rows * K:
+        iir_group.launch("iir_end_states_launch", x, end,
+                         iir_group.device_table(ops, block, x.device),
+                         rows, K, x.stride(0), n, block, d)
+        block_end_states.launches += 1
+    return end
+
+
+def apply_rows(x: torch.Tensor, sigma: torch.Tensor, block: int, ops,
+               clip: bool = True) -> torch.Tensor:
+    """E2b on the blocks of a (rows, n) signal from their entry states
+    sigma (rows, K, d) contiguous: (rows, n), clipped to [-1, 1] when
+    ``clip``.  A CUDA tensor launches the kernel (a ``block_apply``
+    launch); a CPU tensor runs the plain version."""
+    rows, n = x.shape
+    K = -(-n // block)
+    d = _order(ops)
+    if x.device.type == "cpu":
+        xb = torch.nn.functional.pad(x, (0, K * block - n))
+        y = block_apply_plain(xb.reshape(rows, K, block), sigma,
+                              *device_tables(_plain_consts, ops,
+                                             device=x.device))
+        y = y.reshape(rows, K * block)[:, :n]
+        return torch.clamp(y, -1.0, 1.0) if clip else y
+    y = torch.empty((rows, n), dtype=torch.float32, device=x.device)
+    if rows * K:
+        iir_group.launch("iir_apply_launch", x, sigma, y,
+                         iir_group.device_table(ops, block, x.device),
+                         rows, K, x.stride(0), n, n, block, d, int(clip))
+        block_apply.launches += 1
+    return y
 
 
 def block_end_states(xb: torch.Tensor, ops, *,
@@ -118,42 +145,29 @@ def block_end_states(xb: torch.Tensor, ops, *,
     contiguous -> (batch, K, d).  A CPU tensor runs the plain version; a
     CUDA tensor launches the kernel; anything else raises."""
     d = _check(xb, ops)
-    if xb.device.type == "cpu":
-        a_t, b, _, _ = device_tables(_plain_consts, ops, device=xb.device)
-        return block_end_states_plain(xb, a_t, b)
     bt, K, B = xb.shape
     if not B:
         return xb.new_zeros((bt, K, d))
-    end = torch.empty((bt, K, d), dtype=torch.float32, device=xb.device)
-    if bt * K:
-        _launch("iir_end_states_launch", (xb, end), _system_consts(ops),
-                bt * K, B, d)
-        block_end_states.launches += 1
-    return end
+    return end_states_rows(xb.reshape(bt, K * B), B, ops)
 
 
 def block_apply(xb: torch.Tensor, sigma: torch.Tensor, ops, *,
                 block_tile: int | None = None) -> torch.Tensor:
     """E2b: each block's output from its true initial state.  xb (batch, K,
     B), sigma (batch, K, d), both float32 contiguous on one device -> y
-    (batch, K, B).  A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel; anything else raises."""
+    (batch, K, B), unclipped.  A CPU tensor runs the plain version; a CUDA
+    tensor launches the kernel; anything else raises."""
     d = _check(xb, ops)
     if (not isinstance(sigma, torch.Tensor) or sigma.dtype != torch.float32
             or sigma.device != xb.device or not sigma.is_contiguous()
             or tuple(sigma.shape) != tuple(xb.shape[:-1]) + (d,)):
         raise ValueError(f"sigma must be a contiguous float32 "
                          f"{tuple(xb.shape[:-1]) + (d,)} tensor on {xb.device}")
-    if xb.device.type == "cpu":
-        return block_apply_plain(
-            xb, sigma, *device_tables(_plain_consts, ops, device=xb.device))
     bt, K, B = xb.shape
-    y = torch.empty_like(xb)
-    if bt * K and B:
-        _launch("iir_apply_launch", (xb, sigma, y), _system_consts(ops),
-                bt * K, B, d)
-        block_apply.launches += 1
-    return y
+    if not B:
+        return torch.empty_like(xb)
+    return apply_rows(xb.reshape(bt, K * B), sigma, B, ops,
+                      clip=False).reshape(xb.shape)
 
 
 block_end_states.launches = 0

@@ -13,32 +13,29 @@ block of every row):
     sigma  <- sigma @ A_blk^T + s_tail[G-1]
 
 The TPU kernel carried sigma in VMEM across its sequential grid.  The CUDA
-kernel (``csrc/iir_seq.cu``) is a chained scan: CTAs take blocks from an
-atomic ticket, compute everything that does not need sigma, wait for the
-previous block's published sigma and publish their own.  It sums
-``s_tail`` over the powers A^{gU} (the Toeplitz matrix's distinct blocks)
-rather than over the dense (G d, G d) matrix; the plain version keeps the
-matrix, as the JAX kernel does.  Both are float32 throughout: ``fast``
-(the TPU's bf16x3 FIR product) is accepted and has no effect.
+kernel is the SEQ mode of the E2 body (``csrc/iir_block.cu``, tables and
+torch mirror in ``iir_group.py``): a persistent grid takes blocks from an
+atomic ticket in k-major order; a block runs the group algebra in groups
+of ``iir_group.GROUP`` samples, publishes its zero-entry end state as soon
+as its Horner pass has it, and resolves its entry state from a fixed
+window of ``iir_group.WINDOW`` predecessors (a decoupled look-back whose
+terms and order are the same on every run, so the output is bitwise
+repeatable).  The plain version keeps the dense (G d, G d) Toeplitz matrix
+at ``ops.unroll``, as the JAX kernel does.  Both are float32 throughout:
+``fast`` (the TPU's bf16x3 FIR product) is accepted and has no effect.
 ``super_blocks`` (the TPU grid step) only sets the length rule: L must be a
 multiple of super_blocks * block, and the same ``ValueError`` is raised.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
 from ...utils.device import device_tables
-from .. import _build
+from . import iir_group
 from .iir import ORDERS
-
-_LAUNCHERS = {
-    "iir_seq_launch": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-    + [ctypes.c_void_p],
-}
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,26 +69,13 @@ def equalize_seq_plain(x4: torch.Tensor, gin, toe, pows, fir, gout,
     return torch.clamp(x4 @ fir + s_true @ gout, -1.0, 1.0)
 
 
-def _launch(x, y, tables, sig, sync, rows, K, G, U, d):
-    lib = _build.load("iir_seq", _LAUNCHERS)
-    gin, _, pows, fir, gout, ablk = tables
-    with torch.cuda.device(x.device):
-        err = lib.iir_seq_launch(
-            x.data_ptr(), y.data_ptr(), gin.data_ptr(), pows.data_ptr(),
-            fir.data_ptr(), gout.data_ptr(), ablk.data_ptr(), sig.data_ptr(),
-            sync.data_ptr(), rows, K, G, U, d,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _build.check(lib, err, "iir_seq_launch")
-
-
 def equalize_seq_flat(x: torch.Tensor, ops, *, super_blocks: int = 10,
                       fast: bool = True) -> torch.Tensor:
     """One-sweep EQ on flat (..., L) float32 -> the clipped output, same
     shape.  L must be a multiple of super_blocks * ops.block; the state
     resets for every row.  A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel (U % 4 == 0 and the tables within shared
-    memory, else it raises); anything else raises."""
+    tensor launches the kernel (a block within shared memory, else it
+    raises); anything else raises."""
     if not isinstance(x, torch.Tensor) or x.dtype != torch.float32:
         raise TypeError(f"x must be a float32 tensor, got {getattr(x, 'dtype', type(x))}")
     if x.device.type not in ("cpu", "cuda"):
@@ -107,18 +91,23 @@ def equalize_seq_flat(x: torch.Tensor, ops, *, super_blocks: int = 10,
     K = L // block
     x4 = x.contiguous().reshape(-1, K, G, U)
     rows = x4.shape[0]
-    tables = device_tables(_seq_tables, ops, device=x.device)
     if x.device.type == "cpu":
+        tables = device_tables(_seq_tables, ops, device=x.device)
         return equalize_seq_plain(x4, *tables).reshape(x.shape)
-    if U % 4:
-        raise ValueError(f"the kernel needs unroll % 4 == 0, got {U}")
-    if x4.data_ptr() % 16:                  # the kernel reads float4s
-        x4 = x4.clone()
+    lib = iir_group.library()
+    W = iir_group.WINDOW
+    if block > lib.iir_seq_max_block(d, W):
+        raise ValueError(f"block {block} exceeds the kernel's "
+                         f"{lib.iir_seq_max_block(d, W)} (one block in "
+                         "shared memory)")
     y = torch.empty_like(x4)
     if rows and K:
-        sig = torch.empty(rows * K * d, dtype=torch.float32, device=x.device)
-        sync = torch.zeros(1 + rows * K, dtype=torch.int32, device=x.device)
-        _launch(x4, y, tables, sig, sync, rows, K, G, U, d)
+        # The ticket, then each block's two published vectors.
+        pub = torch.zeros(1 + 2 * rows * K * iir_group.PAY,
+                          dtype=torch.int64, device=x.device)
+        iir_group.launch("iir_seq_launch", x4, y,
+                         iir_group.device_table(ops, block, x.device, W),
+                         pub, rows, K, block, d, W)
         equalize_seq_flat.launches += 1
     return y.reshape(lead + (L,))
 

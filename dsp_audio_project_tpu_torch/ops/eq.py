@@ -36,7 +36,7 @@ import torch
 
 from ..config import EQConfig
 from ..kernels.eq_finish import eq_finish, eq_finish_plain
-from ..kernels.experiments.iir import block_apply, block_end_states
+from ..kernels.experiments.iir import apply_rows, end_states_rows
 from ..utils.device import as_input
 from ..design.biquad import (
     BlockOperators,
@@ -293,12 +293,13 @@ def equalize_pallas(x, fs: int, cfg: EQConfig, block: int = 1024,
     (kernels/experiments/iir.py, ``csrc/iir_block.cu``): the route of
     ``KernelConfig(iir_path='pallas')``, named as in the JAX package.
 
-    Zero-pad to K whole blocks, E2a (the zero-init end state of each
-    block), ``_carry_states`` (the true initial states), E2b (each block
-    re-run from its true state), crop, clip: x is read twice and y written
-    once, with no correction product.  Bypass and the no-active-band clip
-    as in ``equalize``; ``unroll`` only shapes the design tables.  On a CPU
-    tensor the kernels' plain versions run.
+    E2a (the zero-init end state of each block, zeros read past n),
+    ``_carry_states`` (the true initial states), E2b (each block re-run
+    from its true state, clipped and cropped to n as it is written): x is
+    read twice and y written once, with no correction product and no pad
+    or clip pass.  Bypass and the no-active-band clip as in ``equalize``;
+    ``unroll`` only shapes the design tables (the kernels group at their
+    own length).  On a CPU tensor the kernels' plain versions run.
     """
     x = as_input(x, device, "equalize_pallas")
     if cfg.bypass:
@@ -308,14 +309,15 @@ def equalize_pallas(x, fs: int, cfg: EQConfig, block: int = 1024,
         return torch.clamp(x, -1.0, 1.0)
     ops = make_block_operators(bands, int(fs), cfg.q, block, unroll)
     lead, n = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, n)
+    if x2.stride(-1) != 1:
+        x2 = x2.contiguous()
     K = -(-n // block)
-    xb = torch.nn.functional.pad(x.reshape(-1, n), (0, K * block - n))
-    xb = xb.reshape(-1, K, block)
     tables = carry_tables(ops, x.device, K)
-    sigma = _carry_states(block_end_states(xb, ops), tables["state_corr"],
-                          tables.get("carry_w"))
-    y = block_apply(xb, sigma.contiguous(), ops)
-    return torch.clamp(y.reshape(lead + (K * block,))[..., :n], -1.0, 1.0)
+    sigma = _carry_states(end_states_rows(x2, block, ops),
+                          tables["state_corr"], tables.get("carry_w"))
+    return apply_rows(x2, sigma.contiguous(), block, ops).reshape(
+        lead + (n,))
 
 
 def equalize_frames(
