@@ -7,9 +7,10 @@
 Drives the port (dsp_audio_project_tpu_torch) at its real size — 44.1 ->
 48 kHz SRC (L/M = 160/147) + the 5-band EQ + |rfft| spectra of x, y and z
 on the cat, frames and explicit-kernel (fir_path = iir_path = 'pallas')
-paths, the analysis ops (STFT, spectrogram, long-window spectra) and the
-experimental kernels' entry points, 60 s signals, batch 8 — through the
-entry points a user calls, and checks it.
+paths, the dynamic-gain cat and frames paths, the analysis ops (STFT,
+spectrogram, long-window spectra) and the experimental kernels' entry
+points, 60 s signals, batch 8 — through the entry points a user calls,
+and checks it.
 Phases, one or more lines each:
 
   1. device: card name, ``nvidia-smi`` name and power limit, TF32 off;
@@ -61,14 +62,34 @@ Phases, one or more lines each:
      [e6] E6 vs its plain version and float64 np.fft.rfft (>= 135 dB) at one row of every N from 4 to 32768 and at
      65536 (the two-pass route), then its own counted run at the STFT's
      (41344, 2048) frames;
- 13. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs;
+ 13. [dynamic] dynamic gains at the serving shape: three gain vectors
+     (tests/test_eq_dynamic.py's complex-pole, real-pole and
+     below-threshold sets), each through both builders ('host': float64
+     numpy; 'traced': float64 on the card) and both dynamic forwards,
+     each counted: ``forward_cat_dynamic_ops`` must launch K1 and K9,
+     ``forward_frames_dynamic_ops`` the frames kernel and K9; z >= 60 dB
+     against the oracle for its gains, host vs traced builder >= 90 dB,
+     cat vs frames >= 110 dB, the static table caches unchanged; K1 at
+     V = P + 12 = 172 and K9 at d = 12 vs plain (> 120 dB); then the
+     gain change inside one captured CUDA graph: graph (change) runs the
+     device builder and the G2 fold from a gains buffer, graph (cat) the
+     cat forward (kernels counted at capture), both replayed for two
+     gain vectors copied into the buffer, each output equal to the eager
+     call bit for bit (or >= 130 dB, and the run says so) and >= 60 dB
+     against the oracle, with no host design between the replays;
+ 14. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs;
      the plain E2 versions, an 8192-step host loop, median of 2 after 2):
      the chains and analysis paths per call (per call, and per call of 20
      back-to-back calls; the host's own time per call), the cat chain with
      either finish in turns, and each kernel beside its plain version and
      one PyTorch library call computing the same function (``library_ms``;
-     the port never calls it).  ``--profile`` adds device time by kernel
-     (torch.profiler) for each chain and analysis path, and for E6 and E7.
+     the port never calls it); for dynamic gains one gain change (the
+     host builder's host tables, upload and expand; the device builder,
+     eager and as a graph replay; the G2 fold) and the dynamic chains per
+     call, eager and as graph replays, beside the static ``forward_cat``.
+     ``--profile`` adds device time by kernel (torch.profiler) for each
+     chain and analysis path, the dynamic chains and the device builder,
+     and for E6 and E7.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  The third line from the end is the card's name and power
@@ -77,8 +98,9 @@ record
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"},
 ...]}: ``launches`` sums the kernel's launches over the main-path runs of
-[slice], [frames], [analysis], [explicit] and the entry points' own runs
-in [k3] (serving shape), [e7] and [e6] (for K7 and K8, calls of the
+[slice], [frames], [analysis], [explicit], [dynamic] (its eager runs) and
+the entry points' own runs in [k3] (serving shape), [e7] and [e6] (for K7
+and K8, calls of the
 two-pass launcher, each of which starts both passes, as the JAX K8's two
 ``pallas_call``s are one kernel; K3-K6, E1 and E3-E5 rows all time the one
 frames kernel through their entry points); ``bound_ms`` is the larger of
@@ -1097,6 +1119,295 @@ def phase_e6(x: torch.Tensor):
              "bound": rfft_bound(frames.shape[0], nfft, 8)}, counts)
 
 
+# ---- dynamic gains (ops/eq_dynamic.py) -------------------------------------
+
+# tests/test_eq_dynamic.py's gain sets: complex and real poles, and gains
+# below the 0.1 dB skip threshold.
+DYN_GAINS = ((6.0, -3.0, 0.0, 12.0, -15.0, 4.0),
+             (-15.0, -14.0, -13.0, -12.5, -3.0, 0.0),
+             (0.05, -0.05, 0.0, 0.0, 0.0, 0.0))
+DYN_ORACLE_DB, DYN_BUILDERS_DB = 60.0, 90.0
+DYN_CAT_DB, DYN_GRAPH_DB = 110.0, 130.0
+
+
+def dyn_oracle(pipe, want: list, gains) -> list:
+    """Per signal, the oracle's z for ``gains``: pipeline_oracle(x, fs, src,
+    EQConfig.from_gains(gains), engine="fast"), whose SRC half is [slice]'s
+    oracle y (the same x and SRC config)."""
+    from dsp_audio_project_tpu_torch import EQConfig, oracle
+
+    names = [name for name, _ in pipe.config.eq.band_centers]
+    eq = EQConfig.from_gains(dict(zip(names, gains)))
+    fs_out = pipe.config.src.output_rate(FS)
+    return [oracle.equalize_oracle(y_want, fs_out, eq)
+            for y_want, _, _ in want]
+
+
+def dyn_gate(what: str, z_want: list, z: torch.Tensor) -> float:
+    from dsp_audio_project_tpu_torch import oracle
+
+    zh = z.cpu().numpy()
+    worst = min(oracle.snr_db(w, zh[i]) for i, w in enumerate(z_want))
+    log(f"[dynamic] {what} vs oracle, min snr over {len(z_want)} signals "
+        f"{worst:.1f} dB (gate {DYN_ORACLE_DB:.0f})")
+    if not worst >= DYN_ORACLE_DB:
+        raise RuntimeError(f"[dynamic] {what} below the oracle gate")
+    return worst
+
+
+def dyn_agree(what: str, a: torch.Tensor, b: torch.Tensor,
+              gate_db: float) -> None:
+    s = snr_db(a, b)
+    log(f"[dynamic] {what}: snr {s:.1f} dB (gate {gate_db:.0f})")
+    if not s >= gate_db:
+        raise RuntimeError(f"[dynamic] {what} below its gate")
+
+
+def phase_dynamic(pipe, x: torch.Tensor, want: list):
+    """Dynamic gains at the serving shape: for each of DYN_GAINS and each
+    builder ('host', 'traced'), ``forward_cat_dynamic_ops`` (K1, K9) and
+    ``forward_frames_dynamic_ops`` (the frames kernel, K9), each counted;
+    z vs the oracle, builder vs builder, cat vs frames; K1 at V = 172 and
+    K9 at d = 12 vs plain; then the gain change inside one captured CUDA
+    graph.  (counts, {tag: kernel check}, the graphs and callables for
+    [time])."""
+    from dsp_audio_project_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts,
+    )
+    from dsp_audio_project_tpu_torch.kernels.eq_finish import (
+        eq_finish, eq_finish_plain,
+    )
+    from dsp_audio_project_tpu_torch.kernels.fir_class import (
+        fir_cat_plain, polyphase_fir_class_rect_cat,
+    )
+    from dsp_audio_project_tpu_torch.ops import eq as teq
+    from dsp_audio_project_tpu_torch.ops.eq_dynamic import _dyn_states
+
+    n = x.shape[-1]
+    n_out = pipe.config.src.output_length(n)
+    plan = pipe._plan()
+
+    def flat(z):
+        return z.reshape(BATCH, -1)[:, :n_out]
+
+    def caches():
+        return (teq.make_block_operators.cache_info(), len(teq._device_tables))
+
+    before = caches()
+    total, z_wants = None, {}
+    for gains in DYN_GAINS:
+        z_want = z_wants[gains] = dyn_oracle(pipe, want, gains)
+        outs = {}
+        for builder, g in (("host", np.asarray(gains)),
+                           ("traced", torch.tensor(gains, device=DEVICE))):
+            ops = pipe.dynamic_eq_operators(g, FS, n, builder=builder)
+            tabs = pipe.dynamic_cat_tables(ops)
+            zc, c_cat = run_counted(
+                lambda: pipe.forward_cat_dynamic_ops(x, ops, tabs, FS))
+            require("dynamic", c_cat, ("polyphase_fir_class_rect_cat",
+                                       "eq_finish"))
+            (zf, _), c_fr = run_counted(
+                lambda: pipe.forward_frames_dynamic_ops(x, ops, FS))
+            require("dynamic", c_fr, ("fir_frames_kernel", "eq_finish"))
+            for c in (c_cat, c_fr):
+                total = c if total is None else {k: total[k] + c[k]
+                                                 for k in total}
+            zc, zf = flat(zc), flat(zf)
+            if not (bool(torch.isfinite(zc).all())
+                    and bool(torch.isfinite(zf).all())):
+                raise RuntimeError("[dynamic] non-finite output")
+            tag = f"gains {gains} {builder} builder"
+            dyn_gate(f"{tag}: cat z", z_want, zc)
+            dyn_gate(f"{tag}: frames z", z_want, zf)
+            dyn_agree(f"{tag}: cat vs frames", zf, zc, DYN_CAT_DB)
+            outs[builder] = (zc, zf)
+        for i, path in enumerate(("cat", "frames")):
+            dyn_agree(f"gains {gains}: host vs traced builder, {path}",
+                      outs["host"][i], outs["traced"][i], DYN_BUILDERS_DB)
+    if caches() != before:
+        raise RuntimeError("[dynamic] a gain change grew a static table cache")
+    log(f"[dynamic] {2 * len(DYN_GAINS)} gain changes left the static caches "
+        f"as they were: make_block_operators {before[0]}, _device_tables "
+        f"{before[1]}")
+
+    # K1 at V = P + 12 and K9 at d = 12, on the first gain set's operators.
+    ops = pipe.dynamic_eq_operators(torch.tensor(DYN_GAINS[0], device=DEVICE),
+                                    FS, n)
+    g2 = pipe.dynamic_cat_tables(ops).g2
+    f_pad = pipe.dynamic_eq_geometry(FS, n)[2] * 128
+
+    def k1_kern():
+        return polyphase_fir_class_rect_cat(x, plan, n_out, None, g2=g2)
+
+    def k1_plain():
+        return fir_cat_plain(x, g2, plan.P, plan.s, f_pad, -plan.lo)
+
+    (y0, inj), (y0_ref, inj_ref) = k1_kern(), k1_plain()
+    torch.cuda.synchronize()
+    k1_err = max(compare("dynamic", f"K1 y0 (V = {g2.shape[1]})", y0, y0_ref),
+                 compare("dynamic", f"K1 inj (d = {inj.shape[-1]})", inj,
+                         inj_ref))
+    del y0_ref, inj_ref
+    d = inj.shape[-1]
+    st = _dyn_states(inj.reshape(BATCH, -1, 128, d), ops).reshape(
+        BATCH, f_pad, d)
+
+    def k9_kern():
+        return eq_finish(y0, st, ops.group_out)
+
+    def k9_plain():
+        return eq_finish_plain(y0, st, ops.group_out)
+
+    k9_err = compare("dynamic", f"K9 (d = {d})", k9_kern(), k9_plain())
+    checks = {
+        "k1_dyn": {"max_abs_err": k1_err, "kern": k1_kern, "plain": k1_plain,
+                   "lib": conv_yardstick(x, g2, plan.s, f_pad, -plan.lo),
+                   "bound": fir_bound(BATCH, f_pad, plan.W, g2.shape[1],
+                                      n)[0]},
+        "k9_dyn": {"max_abs_err": k9_err, "kern": k9_kern, "plain": k9_plain,
+                   "lib": None,
+                   "bound": bound(2.0 * y0.numel() * d,
+                                  4.0 * (2 * y0.numel() + st.numel()
+                                         + ops.group_out.numel()))}}
+
+    # The gain change inside one captured CUDA graph.
+    gains = torch.tensor(DYN_GAINS[0], device=DEVICE)
+
+    def change():
+        o = pipe.dynamic_eq_operators(gains, FS, n, builder="traced")
+        return o, pipe.dynamic_cat_tables(o)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # builds, attributes, geometry caches
+        for _ in range(2):
+            o, t = change()
+            pipe.forward_cat_dynamic_ops(x, o, t, FS)
+            pipe.forward_frames_dynamic_ops(x, o, FS)
+    torch.cuda.current_stream().wait_stream(side)
+    del o, t
+    graphs = {name: torch.cuda.CUDAGraph() for name in ("change", "cat",
+                                                        "frames")}
+    with torch.cuda.graph(graphs["change"]):
+        ops_s, tabs_s = change()
+    captured = {}
+    for name, fn, needed in (
+            ("cat", lambda: pipe.forward_cat_dynamic_ops(x, ops_s, tabs_s,
+                                                         FS),
+             ("polyphase_fir_class_rect_cat", "eq_finish")),
+            ("frames", lambda: pipe.forward_frames_dynamic_ops(x, ops_s,
+                                                               FS)[0],
+             ("fir_frames_kernel", "eq_finish"))):
+        reset_launch_counts()
+        with torch.cuda.graph(graphs[name]):
+            captured[name] = fn()
+        require(f"dynamic graph ({name}), at capture", launch_counts(),
+                needed)
+    before = caches()
+    for gains_k in DYN_GAINS[:2]:
+        gains.copy_(torch.tensor(gains_k))
+        graphs["change"].replay()
+        graphs["cat"].replay()
+        torch.cuda.synchronize()
+        got = flat(captured["cat"]).clone()
+        o, t = change()
+        eager = flat(pipe.forward_cat_dynamic_ops(x, o, t, FS))
+        torch.cuda.synchronize()
+        if torch.equal(got, eager):
+            how = "bit for bit"
+        else:
+            s = snr_db(eager, got)
+            how = (f"{s:.1f} dB (gate {DYN_GRAPH_DB:.0f}; a captured "
+                   "product took another cuBLAS algorithm)")
+            if not s >= DYN_GRAPH_DB:
+                raise RuntimeError("[dynamic] graph replay disagrees with "
+                                   "the eager call")
+        log(f"[dynamic] graphs (change, cat) replayed at gains {gains_k}: "
+            f"equal to the eager call {how}")
+        dyn_gate(f"graph replay at gains {gains_k}", z_wants[gains_k], got)
+    after = caches()
+    if after != before:
+        raise RuntimeError("[dynamic] a host design ran between the replays")
+    log("[dynamic] no host design ran between the replays: "
+        f"make_block_operators {after[0]}, _device_tables {after[1]} before "
+        "and after")
+    ops_h = pipe.dynamic_eq_operators(np.asarray(DYN_GAINS[0]), FS, n,
+                                      builder="host")
+    return total, checks, {"graphs": graphs, "ops": ops_s, "tabs": tabs_s,
+                           "gains": gains, "change": change,
+                           "ops_host": ops_h}
+
+
+def time_dynamic(pipe, x: torch.Tensor, dyn: dict) -> dict:
+    """[time] lines of the dynamic path: one gain change (the host builder
+    split into host tables, upload and expand; the device builder, eager
+    and as graph replay; the G2 fold) and the dynamic chains per batch,
+    eager and as graph replay, beside the static cat chain.  Returns the
+    chains for --profile."""
+    from dsp_audio_project_tpu_torch.ops.eq_dynamic import (
+        _expand_dyn_operators, host_dyn_tables, upload_dyn_tables,
+    )
+
+    n = x.shape[-1]
+    cfg = pipe.config
+    fs_out = cfg.src.output_rate(FS)
+    U, G, K = pipe.dynamic_eq_geometry(FS, n)
+    g = np.asarray(DYN_GAINS[0])
+    tabs = host_dyn_tables(g, fs_out, cfg.eq, U, G, K)
+    up = upload_dyn_tables(tabs, DEVICE)
+    graphs, ops_h = dyn["graphs"], dyn["ops_host"]
+    rows = {
+        "host builder: host tables (numpy float64)": (
+            None,
+            host_ms(lambda: host_dyn_tables(g, fs_out, cfg.eq, U, G, K))),
+        "host builder: upload": (
+            None, host_ms(lambda: upload_dyn_tables(tabs, DEVICE))),
+        "host builder: expand (device)": (
+            time_ms(lambda: _expand_dyn_operators(*up)), None),
+        "host builder, whole": (
+            time_ms(lambda: pipe.dynamic_eq_operators(g, FS, n,
+                                                      builder="host")),
+            host_ms(lambda: pipe.dynamic_eq_operators(g, FS, n,
+                                                      builder="host"))),
+        "device builder, eager": (
+            time_ms(lambda: pipe.dynamic_eq_operators(dyn["gains"], FS, n)),
+            host_ms(lambda: pipe.dynamic_eq_operators(dyn["gains"], FS, n))),
+        "G2 fold (dynamic_cat_tables)": (
+            time_ms(lambda: pipe.dynamic_cat_tables(ops_h)),
+            host_ms(lambda: pipe.dynamic_cat_tables(ops_h))),
+        "device builder + G2 fold, graph replay": (
+            time_ms(graphs["change"].replay),
+            host_ms(graphs["change"].replay)),
+    }
+    for name, (ms, host) in rows.items():
+        parts = []
+        if ms is not None:
+            parts.append(f"{ms:.4f} ms (CUDA events, median of {REPS})")
+        if host is not None:
+            parts.append(f"host {host[0]:.4f} ms per call (min {host[1]:.4f}, "
+                         f"max {host[2]:.4f})")
+        log(f"[time] dynamic gain change, {name}: " + "; ".join(parts))
+    tabs_h = pipe.dynamic_cat_tables(ops_h)
+    chains = {
+        "forward_cat_dynamic_ops": functools.partial(
+            pipe.forward_cat_dynamic_ops, x, ops_h, tabs_h, FS),
+        "forward_frames_dynamic_ops": functools.partial(
+            pipe.forward_frames_dynamic_ops, x, ops_h, FS),
+        "forward_cat (static)": functools.partial(pipe.forward_cat, x, FS),
+        "forward_cat_dynamic_ops, graph replay": graphs["cat"].replay,
+        "forward_frames_dynamic_ops, graph replay": graphs["frames"].replay,
+    }
+    for name, fn in chains.items():
+        per_call = time_ms(fn)
+        b2b = back_to_back_ms(fn)
+        host = host_ms(fn)
+        log(f"[time] dynamic chain {name}, batch {BATCH} x {SECONDS:.0f} s: "
+            f"{per_call:.4f} ms per call (median); back to back {b2b:.4f} ms "
+            f"per call; host {host[0]:.4f} ms per call (min {host[1]:.4f}, "
+            f"max {host[2]:.4f})")
+    return {"device builder + G2 fold (traced)": dyn["change"],
+            **{k: v for k, v in chains.items() if "replay" not in k}}
+
 def host_ms(fn, reps: int = REPS) -> tuple[float, float, float]:
     """(median, min, max) host-clock ms until one call returns, the device
     idle before it: what the host spends to enqueue a call."""
@@ -1182,7 +1493,8 @@ def main() -> None:
     e7, e7_counts = phase_e7(cfg, y_flat, want)
     del y_flat
     e6, e6_counts = phase_e6(x)
-    runs += [e7_counts, e6_counts, k3_counts]
+    dyn_counts, dyn_checks, dyn = phase_dynamic(pipe, x, want)
+    runs += [e7_counts, e6_counts, k3_counts, dyn_counts]
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
 
     chains = {
@@ -1211,10 +1523,11 @@ def main() -> None:
     log("[time] chain forward_cat_spectra by finish, in turns (kernel, "
         f"torch, torch, kernel): kernel {finish['kernel']} ms, torch "
         f"{finish['torch']} ms per call")
+    dyn_chains = time_dynamic(pipe, x, dyn)
 
     kernels = {"k1": k1, "k2": k2, "k3": k3, "k9": k9, "k2c": k2c,
                "k7": k7, "k8": k8, "e2a": e2a, "e2b": e2b, "e7": e7, "e6": e6,
-               **k3_routes}
+               **k3_routes, **dyn_checks}
     timings = {}
     for tag, k in kernels.items():
         # The plain E2 loops over 8192 steps on the host: fewer runs.
@@ -1240,7 +1553,7 @@ def main() -> None:
             f"bound {k['bound'][0]:.4f} ms ({k['bound'][1]}){note}")
 
     if profile_too:
-        phase_profile({**chains,
+        phase_profile({**chains, **dyn_chains,
                        "E6 rfft_butterfly at the STFT's (41344, 2048) frames":
                            e6["kern"],
                        "E7 equalize_seq_flat at 8 x 2,949,120": e7["kern"]})

@@ -4,13 +4,17 @@ The SRC -> EQ -> spectra chain (44.1 -> 48 kHz polyphase SRC, the biquad
 EQ cascade, |rfft| spectra of x, y and z) and the analysis ops on one
 NVIDIA Hopper GPU, with hand-written CUDA kernels for their hot loops
 (kernels/): the EQ-fused cat forwards (slice 1), ``AudioPipeline.__call__``
-with the frames and flat forwards (slice 2), and the STFT and long-window
-spectra (slice 3).  The JAX package beside it is the reference the port is
-tested against; this package imports neither jax nor it.
+with the frames and flat forwards (slice 2), the STFT and long-window
+spectra (slice 3), the explicit-kernel routes (slice 4) and dynamic gains
+(slice 5: ``AudioPipeline.forward_{frames,cat}_dynamic*``).  The JAX
+package beside it is the reference the port is tested against; this
+package imports neither jax nor it.
 
 Public entry points:
     process(x, fs, config)            the full SRC->EQ chain
     resample / equalize               individual stages
+    equalize_dynamic[_frames[_ops]],
+    build_dynamic_operators           EQ with the gains as an input
     magnitude_spectrum, angular_spectrum, spectrum_db,
     stft, spectrogram, stft_planes    analysis
     AudioPipeline                     configured pipeline (a torch Module)
@@ -39,6 +43,12 @@ from .models.chain import (  # noqa: E402
     tables_from_numpy,
 )
 from .ops.eq import equalize  # noqa: E402
+from .ops.eq_dynamic import (  # noqa: E402
+    build_dynamic_operators,
+    equalize_dynamic,
+    equalize_dynamic_frames,
+    equalize_dynamic_frames_ops,
+)
 from .ops.spectrum import (  # noqa: E402
     angular_spectrum,
     magnitude_spectrum,
@@ -67,8 +77,12 @@ __all__ = [
     "SRCConfig",
     "SpectrumConfig",
     "angular_spectrum",
+    "build_dynamic_operators",
     "design_tables",
     "equalize",
+    "equalize_dynamic",
+    "equalize_dynamic_frames",
+    "equalize_dynamic_frames_ops",
     "magnitude_spectrum",
     "process",
     "resample",

@@ -78,13 +78,14 @@ _g2_cache: dict = {}
 _g_cache: dict = {}
 
 
-def plan_operator(plan: PolyphasePlan, device) -> torch.Tensor:
-    """The plan's G as a float32 (W, P) tensor on ``device`` (cached)."""
-    key = (id(plan), str(torch.device(device)))
+def plan_operator(plan: PolyphasePlan, device,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The plan's G as a (W, P) tensor of ``dtype`` on ``device`` (cached;
+    float64 is G as designed)."""
+    key = (id(plan), str(torch.device(device)), dtype)
     g = _g_cache.get(key)
     if g is None:
-        g = torch.as_tensor(np.asarray(plan.G, dtype=np.float32),
-                            device=device)
+        g = torch.as_tensor(plan.G, device=device).to(dtype)
         _g_cache[key] = g
     return g
 

@@ -18,6 +18,11 @@ The forwards and the kernels they run:
   kernel) or, with fir_path='pallas', E1, then ``equalize`` or, with
   iir_path='pallas', ``ops/eq.equalize_pallas`` (the block-IIR kernels
   E2a and E2b, ``kernels/experiments/iir.py``);
+* dynamic gains (``forward_frames_dynamic[_ops]``,
+  ``forward_cat_dynamic_ops``): the same frames and cat kernels with the EQ
+  tables of ``ops/eq_dynamic`` (``dynamic_eq_operators`` per gain change,
+  built on the host or on the device; ``dynamic_cat_tables`` for K1's
+  G2), so a new gain vector designs nothing on the host for the chain;
 * spectra: ``ops/spectrum.magnitude_spectrum`` on Hann windows of
   ``config.spectrum.nfft`` points: K2 (``kernels/rfft.py``) up to 8192,
   K7 and K8 (``kernels/rfft_two_pass.py``) from 16384 to 1048576.
@@ -61,6 +66,14 @@ from ..ops.eq import (
     equalize_pallas,
     frames_weights,
     make_block_operators,
+)
+from ..ops.eq_dynamic import (
+    build_cat_tables_dyn,
+    build_dynamic_operators,
+    build_dynamic_operators_host,
+    equalize_dynamic_cat_ops,
+    equalize_dynamic_frames,
+    equalize_dynamic_frames_ops,
 )
 from ..ops.spectrum import (
     magnitude_spectrum,
@@ -364,6 +377,97 @@ class AudioPipeline(nn.Module):
             spectrum_window_rows(z_rows, r0, n_out, scfg),
         ])
         return z, (mx, my, mz)
+
+    # ---- dynamic gains: build operators on a gain change, apply per batch
+
+    def dynamic_eq_geometry(self, fs: int, n: int,
+                            groups_per_block: int = GROUPS_PER_BLOCK):
+        """(unroll, groups_per_block, num_blocks) the dynamic builders use
+        for ``n``-sample inputs: unroll P, and K blocks over the frames
+        kernel's padded frame count."""
+        plan = self._plan()
+        f_pad = frame_grid(self.config.src.output_length(n), plan.P)
+        return plan.P, groups_per_block, -(-f_pad // groups_per_block)
+
+    def dynamic_eq_operators(self, gains_db, fs: int, n: int,
+                             groups_per_block: int = GROUPS_PER_BLOCK,
+                             builder: str = "auto"):
+        """``DynOperators`` on the module's device for ``n``-sample inputs
+        at input rate ``fs``, to pass to ``forward_frames_dynamic_ops`` or
+        (with ``dynamic_cat_tables``) ``forward_cat_dynamic_ops``.
+
+        ``builder``: 'host' designs in float64 numpy (gains as host
+        values, the serving builder); 'traced' designs on the device from a
+        gains tensor, reading nothing back to the host (a gain change a
+        CUDA graph can capture); 'auto' takes 'traced' for a tensor and
+        'host' for anything else.  Band centers and thresholds come from
+        ``config.eq``; its gains are not read.
+        """
+        if builder == "auto":
+            builder = ("traced" if isinstance(gains_db, torch.Tensor)
+                       else "host")
+        cfg = self.config
+        fs_out = cfg.src.output_rate(fs)
+        U, G, K = self.dynamic_eq_geometry(fs, n, groups_per_block)
+        if builder == "host":
+            if isinstance(gains_db, torch.Tensor):
+                gains_db = gains_db.detach().cpu().numpy()
+            return build_dynamic_operators_host(
+                gains_db, fs_out, cfg.eq, U, G, K, device=self.device)
+        if builder == "traced":
+            return build_dynamic_operators(gains_db, fs_out, cfg.eq, U, G, K,
+                                           device=self.device)
+        raise ValueError(f"unknown builder {builder!r}; expected 'auto', "
+                         "'host' or 'traced'")
+
+    def dynamic_cat_tables(self, dyn_ops):
+        """The cat path's table for prebuilt ``DynOperators`` (one device
+        product per gain change, ``ops/eq_dynamic.build_cat_tables_dyn``):
+        pass it to ``forward_cat_dynamic_ops`` with the same operators."""
+        return build_cat_tables_dyn(self._plan(), dyn_ops)
+
+    def forward_frames_dynamic(self, x, gains_db, fs: int):
+        """(x, gains_db, fs) -> (z_frames, y_frames), each (..., F_pad, P):
+        the frames path with the gains as an input (the device builder on
+        every call).  ``gains_db`` (6,), ordered like
+        ``config.eq.band_centers``."""
+        x = self._input(x)
+        y_frames = self._frames_dynamic(x)
+        z_frames = equalize_dynamic_frames(
+            y_frames, gains_db, self.config.src.output_rate(fs),
+            self.config.eq, groups_per_block=GROUPS_PER_BLOCK)
+        return z_frames, y_frames
+
+    def forward_frames_dynamic_ops(self, x, ops, fs: int):
+        """(x, ops, fs) -> (z_frames, y_frames) with prebuilt operators
+        (``dynamic_eq_operators``): the frames kernel, then the EQ apply
+        with its readout and clip in K9."""
+        x = self._input(x)
+        y_frames = self._frames_dynamic(x)
+        z_frames = equalize_dynamic_frames_ops(
+            y_frames, ops, groups_per_block=ops.pows_g.shape[0])
+        return z_frames, y_frames
+
+    def _frames_dynamic(self, x: torch.Tensor) -> torch.Tensor:
+        n_out = self.config.src.output_length(x.shape[-1])
+        return fir_frames(x, self._plan(), n_out, pad_frames=True)
+
+    def forward_cat_dynamic_ops(self, x, ops, tables, fs: int) -> torch.Tensor:
+        """(x, ops, tables, fs) -> z_frames (..., F_pad, P): the cat path
+        with prebuilt operators and their ``dynamic_cat_tables``.  K1 emits
+        y0 and the injections through ``tables.g2``; the Toeplitz solve, the
+        carry and K9 finish.  Needs an active SRC and a signal at least as
+        long as the filter at the upsampled rate."""
+        cfg = self.config
+        x = self._input(x)
+        n = x.shape[-1]
+        if cfg.src.bypass or n * cfg.src.L < cfg.src.num_taps:
+            raise ValueError(f"the cat path does not cover this config/input "
+                             f"(n={n}, fs={fs})")
+        plan = self._plan()
+        y0, inj = polyphase_fir_class_rect_cat(
+            x, plan, cfg.src.output_length(n), None, g2=tables.g2)
+        return equalize_dynamic_cat_ops(y0, inj, ops)
 
     # ---- design tables as buffers ----------------------------------------
 

@@ -147,11 +147,11 @@ def _carry_states(
     """True initial state per block: sigma_{k+1} = A^block sigma_k + e_k.
 
     ``end_states`` (..., K, d); ``state_corr`` (d, d) float32 A^block.
-    sigma_0 = sigma0 (zero by default).  For K <= _CARRY_ALLPAIRS_MAX the
-    triangular solve is one matmul against ``carry_w`` (``_carry_weights``
-    of the float64 A^block, required there); larger K runs the log-depth
-    scan over [(I, sigma0), (A^block, e_0), ..., (A^block, e_{K-2})], whose
-    position k is sigma_k.
+    sigma_0 = sigma0 (zero by default).  With ``carry_w`` (the (K d, K d)
+    carry triangle, as ``_carry_weights`` builds it for K <=
+    _CARRY_ALLPAIRS_MAX) the triangular solve is one matmul against it;
+    without, the log-depth scan over [(I, sigma0), (A^block, e_0), ...,
+    (A^block, e_{K-2})], whose position k is sigma_k.
     """
     d = end_states.shape[-1]
     K = end_states.shape[-2]
@@ -160,10 +160,10 @@ def _carry_states(
         sigma0 = end_states.new_zeros(lead + (d,))
     vecs = torch.cat([sigma0.unsqueeze(-2), end_states[..., : K - 1, :]],
                      dim=-2)
-    if K <= _CARRY_ALLPAIRS_MAX:
-        if carry_w is None or carry_w.shape != (K * d, K * d):
-            raise ValueError(f"the all-pairs carry needs the ({K * d}, "
-                             f"{K * d}) carry weights")
+    if carry_w is not None:
+        if carry_w.shape != (K * d, K * d):
+            raise ValueError(f"carry_w {tuple(carry_w.shape)} != "
+                             f"{(K * d, K * d)}")
         sig = vecs.reshape(lead + (K * d,)) @ carry_w
         return sig.reshape(lead + (K, d))
     eye = torch.eye(d, dtype=state_corr.dtype, device=state_corr.device)
@@ -219,6 +219,20 @@ def carry_tables(ops: BlockOperators, device, K: int) -> dict:
     return out
 
 
+def _group_states(inj: torch.Tensor, toe: torch.Tensor):
+    """Step 2 on (..., K, G, d) injections: (s_in (..., K, G, d), the
+    zero-init state entering each group, and end_states (..., K, d))."""
+    K, G, d = inj.shape[-3:]
+    lead = inj.shape[:-3]
+    if toe.shape != (G * d, G * d):
+        raise ValueError(f"group_toeplitz {tuple(toe.shape)} != {(G*d, G*d)}")
+    s_tail = (inj.reshape(lead + (K, G * d)) @ toe).reshape(lead + (K, G, d))
+    s_in = torch.cat(
+        [s_tail.new_zeros(lead + (K, 1, d)), s_tail[..., : G - 1, :]], dim=-2
+    )
+    return s_in, s_tail[..., G - 1, :]
+
+
 def _true_states(inj: torch.Tensor, tables: Mapping[str, torch.Tensor],
                  sigma0: torch.Tensor | None = None):
     """Steps 2-3 and the state half of step 4 on (..., K, G, d) injections.
@@ -227,16 +241,7 @@ def _true_states(inj: torch.Tensor, tables: Mapping[str, torch.Tensor],
     group, end_states (..., K, d), sigma (..., K, d)).  ``sigma0``: the
     incoming state of block 0 (zero by default).
     """
-    K, G, d = inj.shape[-3:]
-    lead = inj.shape[:-3]
-    toe = tables["group_toeplitz"]
-    if toe.shape != (G * d, G * d):
-        raise ValueError(f"group_toeplitz {tuple(toe.shape)} != {(G*d, G*d)}")
-    s_tail = (inj.reshape(lead + (K, G * d)) @ toe).reshape(lead + (K, G, d))
-    end_states = s_tail[..., G - 1, :]
-    s_in = torch.cat(
-        [s_tail.new_zeros(lead + (K, 1, d)), s_tail[..., : G - 1, :]], dim=-2
-    )
+    s_in, end_states = _group_states(inj, tables["group_toeplitz"])
     sigma = _carry_states(end_states, tables["state_corr"],
                           tables.get("carry_w"), sigma0)
     s_true = s_in + torch.einsum("gef,...kf->...kge", tables["group_pows"],

@@ -1,0 +1,502 @@
+"""Dynamic-gain EQ: the band gains as an input, so a new gain vector needs
+no host redesign of the chain and grows no table cache.
+
+Counterpart of ``dsp_audio_project_tpu/ops/eq_dynamic.py``.  The static
+path (ops/eq.py) designs the active bands on the host and caches their
+tables per gain vector; here every gain change builds one ``DynOperators``
+of device tables, which the per-batch apply side takes as an argument:
+
+* ``build_dynamic_operators_host`` (the serving builder for concrete
+  gains): float64 numpy tables of the float32-quantized Schur system
+  (``host_dyn_tables``, a copy of the JAX package's, held bit for bit by
+  the tests), a small upload (``upload_dyn_tables``) and the two large
+  triangles expanded on the device (``_expand_dyn_operators``);
+* ``build_dynamic_operators`` (gains as a device tensor): the whole design
+  on the device in float64, rounded to float32 at the end.  Each band is a
+  2x2 realization in closed form (a rotation block for a complex pole
+  pair, [[l1, 1], [0, l2]] for a real one, chosen by ``torch.where``), the
+  six bands compose into one order-12 system, and the block tables come
+  from powers by doubling.  It never reads a value back to the host (no
+  ``.item()``, no branch on a tensor), so a gain change can be captured in
+  a CUDA graph.  The JAX package builds in df32 because a TPU has no
+  float64; the H100 has it, so ``utils/df32.py`` is not ported.
+
+The apply side is the static path's algebra on these tables: the group
+Toeplitz solve, the block carry (``dyn_block_carry``: one product against
+the dense carry triangle up to K*d = 2048, else the log-depth scan), and
+the readout with the clip as one K9 pass (``kernels/eq_finish``).  The cat
+path's operator G2 = G @ [fir_t | group_in] is one float64 device product
+per gain change (``build_cat_tables_dyn``); the JAX package's rotated
+banks, DPAD packing and bf16 hi/lo split are TPU layouts and are not
+ported.  Every product is float32: ``fast`` is accepted and has no effect.
+
+Semantics, the dynamic path's and not the static path's: all six bands are
+kept (d = 12), a gain with |g| <= 0.1 dB is masked to an exact 0 dB band,
+and the output is always clipped.  Nothing here calls
+``cfg.active_bands``, ``ops/eq.make_block_operators`` or
+``ops/eq.block_tables``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import EQConfig
+from ..design.biquad import cascade_state_space, peaking_coeffs, schur_form
+from ..kernels.eq_finish import eq_finish
+from ..kernels.fir_class import plan_operator
+from ..utils.device import as_input, default_device, device_tables
+from .eq import _carry_states, _group_states
+
+# Dense-carry ceiling: up to this K*d the block carry is ONE (K d, K d)
+# triangle product; above it the log-depth scan.  2048: a 16 MB f32 table.
+_CARRY_DENSE_MAX_KD = 2048
+
+
+class DynOperators(NamedTuple):
+    """Block operators of one gain vector: float32 tensors on one device."""
+
+    group_in: torch.Tensor    # (U, d)   A^{U-1-v} B
+    group_out: torch.Tensor   # (d, U)   (C A^u)^T columns
+    fir_t: torch.Tensor       # (U, U)   group_fir^T
+    toe: torch.Tensor         # (G d, G d) within-block group Toeplitz
+    pows_g: torch.Tensor      # (G, d, d)  A^{gU}
+    A_blk: torch.Tensor       # (d, d)   A^block
+    carry_w: Optional[torch.Tensor]  # (K d, K d) dense carry triangle or None
+
+
+class CatDynTables(NamedTuple):
+    """The cat path's per-gain-change table: K1's operator."""
+
+    g2: torch.Tensor          # (W, P + d) float32, G @ [fir_t | group_in]
+
+
+def _dense_carry(K: Optional[int], d: int) -> bool:
+    return K is not None and 1 < K and K * d <= _CARRY_DENSE_MAX_KD
+
+
+# ---- the host builder (float64 numpy, as the JAX package's) ---------------
+
+
+def _host_powers(A, count: int):
+    """[I, A, ..., A^{count-1}] float64 via batched doubling (host numpy)."""
+    d = A.shape[0]
+    out = np.eye(d)[None]
+    while out.shape[0] < count:
+        m = out.shape[0]
+        take = min(m, count - m)
+        head = out[-1] @ A                       # A^m
+        out = np.concatenate(
+            [out, np.einsum("ab,jbc->jac", head, out[:take])]
+        )
+    return out
+
+
+def host_dyn_tables(
+    gains_db,
+    fs: int,
+    cfg: EQConfig = EQConfig(),
+    unroll: int = 128,
+    groups_per_block: int = 128,
+    num_blocks: Optional[int] = None,
+):
+    """Host-float64 half of the serving builder: the small numpy tables.
+
+    Returns (group_in (U, d), group_out_T (d, U), fir_T (U, U),
+    pows_g (G, d, d), A_blk (d, d), pk (K, d, d) | None) as float64 numpy:
+    everything ``_expand_dyn_operators`` needs.
+    """
+    g = np.asarray(gains_db, np.float64).reshape(-1).copy()
+    g[np.abs(g) <= cfg.bypass_threshold_db] = 0.0
+    ceiling = (fs / 2.0) * cfg.nyquist_safety
+    sections = []
+    for (name, fc), gain in zip(cfg.band_centers, g):
+        fc_eff = ceiling if fc >= ceiling else fc
+        sections.append(peaking_coeffs(fc_eff, fs, float(gain), cfg.q))
+    ss = schur_form(cascade_state_space(sections))
+
+    A32 = ss.A.astype(np.float32).astype(np.float64)
+    B32 = ss.B.astype(np.float32).astype(np.float64)
+    C32 = ss.C.astype(np.float32).astype(np.float64)
+    D32 = float(np.float32(ss.D))
+    d = ss.order
+    U, G, K = unroll, groups_per_block, num_blocks
+
+    pu = _host_powers(A32, U + 1)                       # (U+1, d, d)
+    group_in = pu[U - 1 :: -1] @ B32                    # (U, d): A^{U-1-v} B
+    CA_u = np.einsum("a,uab->ub", C32, pu[:U])          # (U, d): C A^u
+    seq = CA_u @ B32                                    # (U,):  C A^u B
+    uu = np.arange(U)
+    idx = uu[:, None] - 1 - uu[None, :]
+    fir = np.where(idx >= 0, seq[np.clip(idx, 0, U - 1)], 0.0)
+    fir = fir + D32 * np.eye(U)
+    pg = _host_powers(pu[U], G + 1)                     # (G+1, d, d): (A^U)^g
+    pk = None
+    if _dense_carry(K, d):
+        pk = _host_powers(pg[G], K)                     # (K, d, d)
+    return (group_in, CA_u.T, fir.T, pg[:G], pg[G], pk)
+
+
+def upload_dyn_tables(tabs, device):
+    """``host_dyn_tables``' output as float32 tensors on ``device`` (the
+    upload phase)."""
+    return tuple(None if a is None
+                 else torch.as_tensor(np.array(a, np.float32, order="C"),
+                                     device=device)
+                 for a in tabs)
+
+
+def _lower_triangle(pows: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """(n d, n d) block Toeplitz with block (v, r) = pows[r-v]^T for v <= r.
+
+    Row-vector convention: vecs_flat @ result accumulates pows[r-v] vecs[v]
+    into slot r, the expanded lower-triangular recurrence solve.  One
+    gather of the n x n blocks (a copy, exact).
+    """
+    k = torch.arange(n, device=pows.device)
+    lag = k[None, :] - k[:, None]                       # [v, r] = r - v
+    blocks = pows[lag.clamp(min=0)].transpose(-1, -2)   # [v, r] = pows[r-v]^T
+    blocks = torch.where((lag >= 0)[..., None, None], blocks,
+                         blocks.new_zeros(()))
+    return blocks.permute(0, 2, 1, 3).reshape(n * d, n * d)
+
+
+def _expand_dyn_operators(group_in, group_out, fir_t, pows_g, A_blk, pk
+                          ) -> DynOperators:
+    """Device half of the host builder: the two large triangles."""
+    d = pows_g.shape[-1]
+    carry_w = None if pk is None else _lower_triangle(pk, pk.shape[0], d)
+    return DynOperators(
+        group_in=group_in, group_out=group_out, fir_t=fir_t,
+        toe=_lower_triangle(pows_g, pows_g.shape[0], d), pows_g=pows_g,
+        A_blk=A_blk, carry_w=carry_w,
+    )
+
+
+def build_dynamic_operators_host(
+    gains_db,
+    fs: int,
+    cfg: EQConfig = EQConfig(),
+    unroll: int = 128,
+    groups_per_block: int = 128,
+    num_blocks: Optional[int] = None,
+    device=None,
+) -> DynOperators:
+    """``DynOperators`` for concrete gains (host values), designed in float64
+    numpy as the static path designs (the float32-quantized Schur system):
+    ``host_dyn_tables``, ``upload_dyn_tables``, ``_expand_dyn_operators``.
+
+    ``device``: the card unless the caller asks for another.
+    ``num_blocks``: K = ceil(F / groups_per_block), to also build the
+    dense carry triangle (1 < K and K*d <= 2048).
+    """
+    if device is None:
+        device = default_device("build_dynamic_operators_host")
+    tabs = host_dyn_tables(gains_db, fs, cfg, unroll, groups_per_block,
+                           num_blocks)
+    return _expand_dyn_operators(*upload_dyn_tables(tabs, device))
+
+
+def dyn_operators_from_numpy(arrays: Sequence, device) -> DynOperators:
+    """``DynOperators`` from arrays in its field order (a JAX
+    ``DynOperators``, or numpy arrays; carry_w may be None), as float32
+    tensors on ``device``."""
+    arrays = tuple(arrays)
+    if len(arrays) != len(DynOperators._fields):
+        raise ValueError(f"expected {len(DynOperators._fields)} arrays "
+                         f"({', '.join(DynOperators._fields)}), got "
+                         f"{len(arrays)}")
+    return DynOperators(*upload_dyn_tables(arrays, device))
+
+
+# ---- the device builder (gains as a device tensor, float64) ---------------
+
+
+def _band_trig(fs: int, band_centers, nyquist_safety: float):
+    """(sin w0, cos w0) float64 numpy (nb,) of the bands at rate fs, the
+    Nyquist clamp applied as in the JAX builder.  Held on the device by
+    ``utils/device.device_tables``, so that a captured gain change copies
+    nothing from the host."""
+    ceiling = (fs / 2.0) * nyquist_safety
+    w0 = np.array([2.0 * np.pi * (ceiling if fc >= ceiling else fc) / fs
+                   for _, fc in band_centers])
+    return np.sin(w0), np.cos(w0)
+
+
+def _band_realization(sin_w0, cos_w0, gain_db, q: float):
+    """The peaking biquads (Q = q) of every band as 2-state systems in closed
+    form, float64, vectorized over the nb bands: (A (nb, 2, 2), B (nb, 2),
+    C (nb, 2), D (nb,)).
+
+    disc/4 = sin^2(w0) (1/A^2 - 4) / (4 a0^2) has an exact sign: poles are
+    complex for amp > 1/2.  A complex pair is the rotation block [[m, r],
+    [-r, m]] with B = [1, 0]; a real pair [[l1, 1], [0, l2]] with B = [1, 1]
+    (the unit coupling keeps the maps bounded as l1 -> l2).  Both branches
+    are computed and ``torch.where`` picks one; the divisions of the branch
+    not taken are guarded, so no Inf or NaN reaches a product or a
+    gradient.
+    """
+    one = torch.ones_like(gain_db)
+    zero = torch.zeros_like(gain_db)
+    amp = torch.pow(10.0, gain_db / 40.0)
+    alpha = sin_w0 / (2.0 * q)
+    al_over = alpha / amp
+    al_times = alpha * amp
+    a0 = 1.0 + al_over
+    a1 = -2.0 * cos_w0 / a0
+    a2 = (1.0 - al_over) / a0
+    b0 = (1.0 + al_times) / a0
+    # b1 == a1: the numerator residual c(z) = c1 z + c0 with c1 = a1 (1 - b0)
+    # and 1 - b0 in closed form, alpha (1/A - A) / a0, free of cancellation.
+    c1 = a1 * (alpha * (1.0 / amp - amp) / a0)
+    c0 = (1.0 - al_times) / a0 - b0 * a2
+    m = -0.5 * a1
+    disc4 = sin_w0 * sin_w0 * (1.0 / (amp * amp) - 4.0) / (4.0 * a0 * a0)
+    is_complex = disc4 < 0.0
+    root = torch.sqrt(disc4.abs())
+
+    # Complex pair: C adj(zI - A) B = g1 z - g1 m - g2 r with g1 = c1,
+    # g2 = -(c0 + c1 m) / r.
+    r_safe = torch.where(is_complex, root.clamp(min=1e-300), one)
+    g2_c = -(c0 + c1 * m) / r_safe
+    # Real pair: g1 (1 - l2 + l1) = c0 + c1 l1 and g2 = c1 - g1.
+    l1, l2 = m + root, m - root
+    denom = torch.where(is_complex, one, 1.0 - l2 + l1)
+    g1_r = (c0 + c1 * l1) / denom
+
+    def pick(c, r):
+        return torch.where(is_complex, c, r)
+
+    A = torch.stack([torch.stack([pick(m, l1), pick(root, one)], -1),
+                     torch.stack([pick(-root, zero), pick(m, l2)], -1)], -2)
+    B = torch.stack([one, pick(zero, one)], -1)
+    C = torch.stack([pick(c1, g1_r), pick(g2_c, c1 - g1_r)], -1)
+    return A, B, C, b0
+
+
+def _compose_cascade(A, B, C, D):
+    """Series composition of nb 2-state bands (band 0 first) into one
+    order-2nb system, as ``design.biquad.series`` folds them: block (i, i)
+    of A is A_i, block (i, j < i) is B_i C_j times the D of the bands
+    between them; B_i carries the D of the bands before it, C_j of those
+    after it.  Returns (A (2nb, 2nb), B (2nb,), C (2nb,), D ())."""
+    nb = D.shape[0]
+    k = torch.arange(nb, device=D.device)
+    i, j = k[:, None], k[None, :]
+    kk = k[None, None, :]
+    between = (kk > j[..., None]) & (kk < i[..., None])           # j < k < i
+    gap = torch.where(between, D, torch.ones_like(D)).prod(-1)    # (i, j)
+    off = gap[..., None, None] * B[:, None, :, None] * C[None, :, None, :]
+    blocks = torch.where((j < i)[..., None, None], off,
+                         torch.where((j == i)[..., None, None], A[:, None],
+                                     torch.zeros_like(off)))
+    before = torch.where(j < i, D[None, :], torch.ones_like(gap)).prod(-1)
+    after = torch.where(j > i, D[None, :], torch.ones_like(gap)).prod(-1)
+    return (blocks.permute(0, 2, 1, 3).reshape(2 * nb, 2 * nb),
+            (B * before[:, None]).reshape(-1),
+            (C * after[:, None]).reshape(-1), D.prod())
+
+
+def _cumulative_powers(A: torch.Tensor, count: int) -> torch.Tensor:
+    """[I, A, ..., A^{count-1}] by batched doubling: log2(count) products,
+    each of a shape fixed by ``count`` alone."""
+    out = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)[None]
+    while out.shape[0] < count:
+        m = out.shape[0]
+        head = out[-1] @ A                               # A^m
+        out = torch.cat([out, head @ out[: min(m, count - m)]])
+    return out
+
+
+def _dynamic_operators(gains_db: torch.Tensor, fs: int, cfg: EQConfig,
+                       U: int, G: int, K: Optional[int] = None
+                       ) -> DynOperators:
+    """The device builder's body: float64 design on gains' device, tables
+    rounded to float32 at the end (they are float32 views of one float64
+    system).  ``K`` as in ``build_dynamic_operators``."""
+    g = gains_db.to(torch.float64)
+    # The reference's band skip (dsp_core.py:234): a 0 dB band is exactly
+    # the identity (b == a), so masking reproduces the skip.
+    g = torch.where(g.abs() > cfg.bypass_threshold_db, g, torch.zeros_like(g))
+    sin_w0, cos_w0 = device_tables(_band_trig, int(fs), cfg.band_centers,
+                                   cfg.nyquist_safety, device=g.device)
+    A, Bv, Cv, D = _compose_cascade(*_band_realization(sin_w0, cos_w0, g,
+                                                       cfg.q))
+    d = A.shape[0]
+    f32 = torch.float32
+
+    pu = _cumulative_powers(A, U + 1)                    # (U+1, d, d)
+    CA_u = torch.einsum("a,uab->ub", Cv, pu[:U])         # (U, d): C A^u
+    group_in = pu[:U].flip(0) @ Bv                       # (U, d): A^{U-1-v} B
+    seq = CA_u @ Bv                                      # (U,):  C A^u B
+    uu = torch.arange(U, device=g.device)
+    idx = uu[:, None] - 1 - uu[None, :]
+    fir = torch.where(idx >= 0, seq[idx.clamp(0, U - 1)],
+                      torch.zeros_like(seq))
+    fir = fir + D * torch.eye(U, dtype=fir.dtype, device=fir.device)
+    pg = _cumulative_powers(pu[U], G + 1)                # (G+1, d, d): (A^U)^g
+    pows_g = pg[:G].to(f32)
+    carry_w = None
+    if _dense_carry(K, d):
+        carry_w = _lower_triangle(_cumulative_powers(pg[G], K).to(f32), K, d)
+    return DynOperators(
+        group_in=group_in.to(f32), group_out=CA_u.T.contiguous().to(f32),
+        fir_t=fir.T.contiguous().to(f32), toe=_lower_triangle(pows_g, G, d),
+        pows_g=pows_g, A_blk=pg[G].to(f32), carry_w=carry_w,
+    )
+
+
+def build_dynamic_operators(
+    gains_db,
+    fs: int,
+    cfg: EQConfig = EQConfig(),
+    unroll: int = 128,
+    groups_per_block: int = 128,
+    num_blocks: Optional[int] = None,
+    device=None,
+) -> DynOperators:
+    """``DynOperators`` from gains as a device tensor (the device builder).
+
+    ``gains_db`` (nb,), ordered like ``cfg.band_centers``: a tensor stays
+    on its device; other input goes to ``device`` (the card by default).
+    The design runs on that device in float64 and reads nothing back to the
+    host, so the call can be captured in a CUDA graph (after a first call
+    has put the band geometry on the device).  ``num_blocks``: K, to also
+    build the dense carry triangle (1 < K and K*d <= 2048).
+    """
+    gains = as_input(gains_db, device, "build_dynamic_operators")
+    return _dynamic_operators(gains, fs, cfg, unroll, groups_per_block,
+                              num_blocks)
+
+
+# ---- the apply side ------------------------------------------------------
+
+
+def dyn_block_carry(e_states: torch.Tensor, carry_w: Optional[torch.Tensor],
+                    A_blk: torch.Tensor) -> torch.Tensor:
+    """Zero-init cross-block carry sigma_{k+1} = A_blk sigma_k + e_k over
+    (..., K, d): one product against ``carry_w`` where the builder made it,
+    else the log-depth scan (``ops/eq._carry_states``, the static path's
+    carry)."""
+    return _carry_states(e_states, A_blk, carry_w)
+
+
+def _dyn_states(inj: torch.Tensor, ops: DynOperators) -> torch.Tensor:
+    """The true state entering each group, (..., K, G, d), from the
+    injections (..., K, G, d)."""
+    s_in, e_states = _group_states(inj, ops.toe)
+    sigma = dyn_block_carry(e_states, ops.carry_w, ops.A_blk)
+    return s_in + torch.einsum("gef,...kf->...kge", ops.pows_g, sigma)
+
+
+def _dynamic_grouped(x_g: torch.Tensor, ops: DynOperators) -> torch.Tensor:
+    """Grouped input (..., K, G, U) -> clipped output (..., K, G, U).
+
+    As the static frames EQ: one product against [fir_t | group_in] (its
+    columns padded to a multiple of 4, so that K9 reads y0 as a column
+    slice with 16-byte aligned rows), the states, then K9.
+    """
+    U, d = ops.group_in.shape
+    w = torch.cat([ops.fir_t, ops.group_in], dim=1)
+    w = F.pad(w, (0, -(U + d) % 4))
+    cat = x_g @ w
+    s_true = _dyn_states(cat[..., U:U + d], ops)
+    return eq_finish(cat[..., :U], s_true, ops.group_out)
+
+
+def _apply_dynamic_frames(frames: torch.Tensor, ops: DynOperators,
+                          G: int) -> torch.Tensor:
+    P, F_ = frames.shape[-1], frames.shape[-2]
+    lead = frames.shape[:-2]
+    if P != ops.group_in.shape[0]:
+        raise ValueError(f"operators built for unroll "
+                         f"{ops.group_in.shape[0]}, frames are {P} wide")
+    K = -(-F_ // G)
+    x = frames.to(torch.float32)
+    if K * G != F_:
+        x = F.pad(x, (0, 0, 0, K * G - F_))
+    z = _dynamic_grouped(x.reshape(lead + (K, G, P)), ops)
+    return z.reshape(lead + (K * G, P))[..., :F_, :]
+
+
+def equalize_dynamic_frames_ops(frames: torch.Tensor, ops: DynOperators,
+                                groups_per_block: int = 128,
+                                fast: bool = False) -> torch.Tensor:
+    """Frame-major EQ (..., F, P) -> clipped frames with prebuilt
+    operators: the per-batch half of the serving split.  ``fast`` has no
+    effect."""
+    return _apply_dynamic_frames(frames, ops, groups_per_block)
+
+
+def equalize_dynamic_frames(frames: torch.Tensor, gains_db, fs: int,
+                            cfg: EQConfig = EQConfig(),
+                            groups_per_block: int = 128,
+                            fast: bool = False) -> torch.Tensor:
+    """Frame-major EQ with gains as an input: the device builder on frames'
+    device (unroll P, block G*P), then the apply.  ``fast`` has no
+    effect."""
+    G = groups_per_block
+    K = -(-frames.shape[-2] // G)
+    ops = build_dynamic_operators(gains_db, fs, cfg, frames.shape[-1], G, K,
+                                  device=frames.device)
+    return _apply_dynamic_frames(frames, ops, G)
+
+
+def equalize_dynamic(x, gains_db, fs: int, cfg: EQConfig = EQConfig(),
+                     block: int = 8192, unroll: int = 128,
+                     fast: bool = False, device=None) -> torch.Tensor:
+    """EQ of (..., N) signals with gains as an input (the device builder).
+
+    The same result as the static ``equalize`` to float32 rounding, with
+    the dynamic path's semantics: a gain with |g| <= 0.1 dB is an exact
+    0 dB band and the output is always clipped.  ``x`` and ``device`` as
+    in ``equalize``; ``fast`` has no effect.
+    """
+    if block % unroll:
+        raise ValueError(f"block {block} is not a multiple of unroll {unroll}")
+    x = as_input(x, device, "equalize_dynamic")
+    G = block // unroll
+    lead, n = x.shape[:-1], x.shape[-1]
+    K = -(-n // block)
+    ops = build_dynamic_operators(gains_db, fs, cfg, unroll, G, K,
+                                  device=x.device)
+    frames = F.pad(x, (0, K * block - n)).reshape(lead + (K * G, unroll))
+    z = _apply_dynamic_frames(frames, ops, G)
+    return z.reshape(lead + (K * block,))[..., :n]
+
+
+# ---- the cat path ---------------------------------------------------------
+
+
+def build_cat_tables_dyn(plan, ops: DynOperators) -> CatDynTables:
+    """K1's operator for a gain change: G2 = G @ [fir_t | group_in], one
+    float64 product on ops' device cast to float32, as the static path's
+    host fold (``kernels/fir_class.cat_operator``) composes it."""
+    w_cat = torch.cat([ops.fir_t, ops.group_in], dim=1).to(torch.float64)
+    G = plan_operator(plan, w_cat.device, torch.float64)
+    return CatDynTables(g2=(G @ w_cat).to(torch.float32))
+
+
+def equalize_dynamic_cat_ops(y0_frames: torch.Tensor, inj: torch.Tensor,
+                             ops: DynOperators,
+                             fast: bool = False) -> torch.Tensor:
+    """EQ finish on K1's emission with prebuilt operators: the group
+    Toeplitz solve, the carry and K9.  ``y0_frames`` (..., F, U), ``inj``
+    (..., F, d) unpacked, F a multiple of the operators' groups per block.
+    Returns z frames (..., F, U), clipped; ``fast`` has no effect."""
+    U, d = ops.group_in.shape
+    G = ops.pows_g.shape[0]
+    F_ = y0_frames.shape[-2]
+    if y0_frames.shape[-1] != U:
+        raise ValueError(f"y0 width {y0_frames.shape[-1]} != unroll {U}")
+    if F_ % G:
+        raise ValueError(f"frame count {F_} not a multiple of {G}")
+    if tuple(inj.shape[-2:]) != (F_, d):
+        raise ValueError(f"inj shape {tuple(inj.shape[-2:])} != {(F_, d)}")
+    lead = y0_frames.shape[:-2]
+    s_true = _dyn_states(inj.reshape(lead + (F_ // G, G, d)), ops)
+    return eq_finish(y0_frames, s_true.reshape(lead + (F_, d)),
+                     ops.group_out)

@@ -24,7 +24,12 @@ torch.fft.rfft.  E6 at every N from 4 to 65536 (the two-pass kernel above
 32768): vs its plain version, and vs float64 at >= 135 dB and max abs
 error < 1e-5 * max|X|.  The analysis routes each launch their kernel, and
 a kernel that cannot be built raises, for every planned rfft size, the
-FIR launchers and E6.
+FIR launchers and E6.  Dynamic gains: both dynamic forwards on the card
+vs on the CPU, for each builder (> 110 dB; the cat path >= 110 dB against
+the frames path), K1 at V = 172 and K9 at d = 12 vs plain (> 120 dB), and
+a gain change inside one captured CUDA graph (bit for bit against the
+eager call, or >= 130 dB where a captured product takes another cuBLAS
+algorithm).
 """
 from __future__ import annotations
 
@@ -709,3 +714,128 @@ def test_explicit_pipeline_on_card_matches_cpu(cuda):
                  *((out_cpu.spectra[k][1], out.spectra[k][1])
                    for k in ("input", "resampled", "output"))):
         assert snr_db(host(a), host(b)) > 110
+
+
+# ---- dynamic gains (ops/eq_dynamic.py) -------------------------------------
+
+DYN_GAINS = ((6.0, -3.0, 0.0, 12.0, -15.0, 4.0),
+             (-15.0, -14.0, -13.0, -12.5, -3.0, 0.0))
+
+
+def dyn_pipe(device=None):
+    return pt.AudioPipeline(pt.PipelineConfig(
+        src=pt.SRCConfig(L=160, M=147), eq=pt.EQConfig()), device=device)
+
+
+@pytest.mark.parametrize("builder", ["host", "traced"])
+def test_dynamic_forwards_on_card_match_cpu(cuda, builder):
+    """forward_cat_dynamic_ops launches K1 and K9, forward_frames_dynamic_ops
+    the frames kernel and K9; both > 110 dB against the same forwards on a
+    CPU copy, for each builder, and the cat path >= 110 dB against the
+    frames path."""
+    x = make_x(2, FS // 2, seed=21)
+    n = x.shape[-1]
+    pipe, cpu = dyn_pipe(), dyn_pipe("cpu")
+    for gains in DYN_GAINS:
+        g = torch.tensor(gains) if builder == "traced" else np.asarray(gains)
+        ops = pipe.dynamic_eq_operators(g, FS, n, builder=builder)
+        ops_c = cpu.dynamic_eq_operators(g, FS, n, builder=builder)
+        assert ops.toe.device.type == "cuda"
+        reset_launch_counts()
+        zc = pipe.forward_cat_dynamic_ops(x, ops, pipe.dynamic_cat_tables(ops),
+                                          FS)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts["polyphase_fir_class_rect_cat"] == 1
+        assert counts["eq_finish"] == 1
+        reset_launch_counts()
+        zf, yf = pipe.forward_frames_dynamic_ops(x, ops, FS)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts["fir_frames_kernel"] == 1 and counts["eq_finish"] == 1
+        zc_c = cpu.forward_cat_dynamic_ops(
+            torch.as_tensor(x), ops_c, cpu.dynamic_cat_tables(ops_c), FS)
+        zf_c, yf_c = cpu.forward_frames_dynamic_ops(torch.as_tensor(x), ops_c,
+                                                    FS)
+        for a, b in ((zc_c, zc), (zf_c, zf), (yf_c, yf)):
+            assert snr_db(host(a), host(b)) > 110
+        assert snr_db(host(zf), host(zc)) >= 110
+
+
+def test_fir_cat_and_eq_finish_at_dynamic_widths(cuda):
+    """K1 at V = P + 12 = 172 and K9 at d = 12 (the dynamic path's six
+    bands) against their plain versions: > 120 dB."""
+    pipe = dyn_pipe()
+    plan = make_plan(160, 147)
+    x = torch.as_tensor(make_x(3, FS, seed=22), device=cuda)
+    n_out = pt.SRCConfig(L=160, M=147).output_length(x.shape[-1])
+    ops = pipe.dynamic_eq_operators(torch.tensor(DYN_GAINS[0]), FS,
+                                    x.shape[-1])
+    g2 = pipe.dynamic_cat_tables(ops).g2
+    assert g2.shape == (plan.W, 172)
+    y0, inj = polyphase_fir_class_rect_cat(x, plan, n_out, None, g2=g2)
+    y0r, injr = fir_cat_plain(x, g2, plan.P, plan.s, y0.shape[1], -plan.lo)
+    torch.cuda.synchronize()
+    assert inj.shape[-1] == 12
+    assert snr_db(host(y0r), host(y0)) > 120
+    assert snr_db(host(injr), host(inj)) > 120
+    rng = np.random.default_rng(23)
+    st = torch.as_tensor(rng.standard_normal(y0.shape[:-1] + (12,)).astype(
+        np.float32), device=cuda)
+    z = eq_finish(y0, st, ops.group_out)
+    ref = eq_finish_plain(y0, st, ops.group_out)
+    torch.cuda.synchronize()
+    assert snr_db(host(ref), host(z)) > 120
+
+
+def test_gain_change_in_cuda_graphs(cuda):
+    """Two captured graphs: (a) the gain change, the device builder and the
+    cat table from a gains buffer; (b) the cat forward on an input buffer.
+    Replayed with g1, then with g2 copied into the buffer: each output
+    equals the eager call bit for bit (or >= 130 dB where a captured
+    product took another cuBLAS algorithm), agrees with the CPU (> 110 dB),
+    and no host design or table cache moves between the replays."""
+    from dsp_audio_project_tpu_torch.ops import eq as teq
+
+    pipe, cpu = dyn_pipe(), dyn_pipe("cpu")
+    x = torch.as_tensor(make_x(2, FS // 2, seed=24), device=cuda)
+    n = x.shape[-1]
+    gains = torch.tensor(DYN_GAINS[0], device=cuda)
+
+    def change():
+        ops = pipe.dynamic_eq_operators(gains, FS, n)
+        return ops, pipe.dynamic_cat_tables(ops)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):                  # builds, attributes, geometry
+            ops, tabs = change()
+            pipe.forward_cat_dynamic_ops(x, ops, tabs, FS)
+    torch.cuda.current_stream().wait_stream(side)
+    graph_a, graph_b = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph_a):
+        ops_s, tabs_s = change()
+    reset_launch_counts()
+    with torch.cuda.graph(graph_b):
+        z_s = pipe.forward_cat_dynamic_ops(x, ops_s, tabs_s, FS)
+    counts = launch_counts()
+    assert counts["polyphase_fir_class_rect_cat"] == 1
+    assert counts["eq_finish"] == 1
+    caches = (teq.make_block_operators.cache_info(), len(teq._device_tables))
+    for g in DYN_GAINS:
+        gains.copy_(torch.tensor(g))
+        graph_a.replay()
+        graph_b.replay()
+        torch.cuda.synchronize()
+        got = z_s.clone()
+        ops, tabs = change()
+        eager = pipe.forward_cat_dynamic_ops(x, ops, tabs, FS)
+        torch.cuda.synchronize()
+        assert torch.equal(got, eager) or snr_db(host(eager), host(got)) >= 130
+        ops_c = cpu.dynamic_eq_operators(torch.tensor(g), FS, n)
+        want = cpu.forward_cat_dynamic_ops(x.cpu(), ops_c,
+                                           cpu.dynamic_cat_tables(ops_c), FS)
+        assert snr_db(host(want), host(got)) > 110
+    assert caches == (teq.make_block_operators.cache_info(),
+                      len(teq._device_tables))
