@@ -7,10 +7,11 @@
 Drives the port (dsp_audio_project_tpu_torch) at its real size — 44.1 ->
 48 kHz SRC (L/M = 160/147) + the 5-band EQ + |rfft| spectra of x, y and z
 on the cat, frames and explicit-kernel (fir_path = iir_path = 'pallas')
-paths, the dynamic-gain cat and frames paths, the analysis ops (STFT,
-spectrogram, long-window spectra) and the experimental kernels' entry
-points, 60 s signals, batch 8 — through the entry points a user calls,
-and checks it.
+paths, the dynamic-gain cat and frames paths, the streams (one signal in
+100 ms chunks; eight channels in super-steps on each route), the analysis
+ops (STFT, spectrogram, long-window spectra) and the experimental
+kernels' entry points, 60 s signals, batch 8 — through the entry points a
+user calls, and checks it.
 Phases, one or more lines each:
 
   1. device: card name, ``nvidia-smi`` name and power limit, TF32 off;
@@ -77,7 +78,22 @@ Phases, one or more lines each:
      gain vectors copied into the buffer, each output equal to the eager
      call bit for bit (or >= 130 dB, and the run says so) and >= 60 dB
      against the oracle, with no host design between the replays;
- 14. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs;
+ 14. [stream] streaming (streaming.py): (a) ``StreamProcessor`` on one
+     row of the serving signal in 100 ms chunks and in a ragged chunking
+     with a 1-sample chunk, each counted (the frames kernel, K9), z >= 110
+     dB against that row of the one-shot ``pipe(x, fs)``; (b)
+     ``ShardedStreamProcessor`` on ``single_device_mesh()`` at C = 8 over
+     the serving batch, routes flat (FL 1024), fused frames (FL 512), cat
+     (FL 1024), dynamic frames and dynamic cat (DYN_GAINS[0]), each counted
+     (cat: K1 and K9; the others: the frames kernel and K9), each step one
+     replayed CUDA graph captured once, z >= 110 dB against [slice]'s
+     one-shot z; a checkpoint mid-stream resumed bit for bit; the eager
+     step bit for bit against the replays; ``set_gains`` between two steps
+     >= 110 dB against the same stream on a CPU copy of the processor, with
+     no re-capture; K1 (num_frames = FL, pad_left = 0), the frames kernel
+     (a step's and a 100 ms chunk's span) and K9 (a step's (C, K_loc, G,
+     U)) vs plain (> 120 dB), folded into the record's max_abs_err;
+ 15. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs;
      the plain E2 versions, an 8192-step host loop, median of 2 after 2):
      the chains and analysis paths per call (per call, and per call of 20
      back-to-back calls; the host's own time per call), the cat chain with
@@ -86,10 +102,17 @@ Phases, one or more lines each:
      the port never calls it); for dynamic gains one gain change (the
      host builder's host tables, upload and expand; the device builder,
      eager and as a graph replay; the G2 fold) and the dynamic chains per
-     call, eager and as graph replays, beside the static ``forward_cat``.
+     call, eager and as graph replays, beside the static ``forward_cat``;
+     for streams, (a)'s host ms per 100 ms chunk, the one-shot cat
+     chain's samples/s, and for cat steps at FL 2048, 8192 and 24576 on an
+     8 x 330 s signal the input samples/s with the signal in one
+     process() call and one step's input a call, the host ms per step by
+     part, the device ms per step (a graph replay), the bytes up and down
+     per step, the pinned copy rates of the step's size and the step's
+     bound max(device, up / H2D, down / D2H).
      ``--profile`` adds device time by kernel (torch.profiler) for each
      chain and analysis path, the dynamic chains and the device builder,
-     and for E6 and E7.
+     one eager stream step (cat, FL 8192), and for E6 and E7.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  The third line from the end is the card's name and power
@@ -98,7 +121,9 @@ record
 {"kernels": [{"name", "route", "source", "replaces", "launches",
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"},
 ...]}: ``launches`` sums the kernel's launches over the main-path runs of
-[slice], [frames], [analysis], [explicit], [dynamic] (its eager runs) and
+[slice], [frames], [analysis], [explicit], [dynamic] (its eager runs),
+[stream] (a) and (b) (a replayed step launches through the graph and is
+counted at its capture and warm-up) and
 the entry points' own runs in [k3] (serving shape), [e7] and [e6] (for K7
 and K8, calls of the
 two-pass launcher, each of which starts both passes, as the JAX K8's two
@@ -124,6 +149,7 @@ Imports nothing of JAX.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import math
 import statistics
@@ -763,7 +789,9 @@ def require(tag: str, counts: dict, names) -> None:
                            f"{missing}")
 
 
-def phase_slice(pipe, x: torch.Tensor, want: list) -> dict:
+def phase_slice(pipe, x: torch.Tensor, want: list):
+    """The cat chain: (counts, z flat), z the one-shot reference of
+    [stream]."""
     cfg = pipe.config
     n_out = cfg.src.output_length(x.shape[-1])
     (z, mags), counts = run_counted(lambda: pipe.forward_cat_spectra(x, FS))
@@ -780,7 +808,7 @@ def phase_slice(pipe, x: torch.Tensor, want: list) -> dict:
         "(bound 120)")
     if not s > 120.0:
         raise RuntimeError("the K9 finish disagrees with the torch finish")
-    return counts
+    return counts, zf
 
 
 def phase_frames(pipe, x: torch.Tensor, want: list) -> dict:
@@ -1408,6 +1436,405 @@ def time_dynamic(pipe, x: torch.Tensor, dyn: dict) -> dict:
     return {"device builder + G2 fold (traced)": dyn["change"],
             **{k: v for k, v in chains.items() if "replay" not in k}}
 
+
+# ---- streaming (streaming.py) ----------------------------------------------
+
+STREAM_CHUNK = FS // 10          # (a): 100 ms chunks
+# (a): a ragged chunking with a 1-sample chunk (the rest in 1 s chunks)
+STREAM_RAGGED = (1, 4409, 17, 100000, 3, 33333, 7)
+STREAM_DB = 110.0                # the JAX package's stream invariance gate
+# (b): FL and chunking of each route; the routes' chunks are 1 s, 2.5 s
+# and a ragged start, so steps dispatch several at a time and one at a
+# time.
+STREAM_ROUTES = (
+    ("flat", dict(fused=False, frames_per_shard=1024),
+     ("fir_frames_kernel", "eq_finish")),
+    ("fused frames", dict(frames_per_shard=512),
+     ("fir_frames_kernel", "eq_finish")),
+    ("cat", dict(frames_per_shard=1024),
+     ("polyphase_fir_class_rect_cat", "eq_finish")),
+    ("dynamic frames", dict(frames_per_shard=512, gains_db=DYN_GAINS[0]),
+     ("fir_frames_kernel", "eq_finish")),
+    ("dynamic cat", dict(frames_per_shard=1024, gains_db=DYN_GAINS[0]),
+     ("polyphase_fir_class_rect_cat", "eq_finish")),
+)
+STREAM_FLS = (2048, 8192, 24576)     # (c): cat steps timed
+STREAM_LONG_SECONDS = 330.0          # 4 steps at FL = 24576
+
+
+def stream_chunks(n: int, first=(), size: int = FS) -> list:
+    """``first`` then chunks of ``size`` covering n samples."""
+    out = list(first)
+    pos = sum(out)
+    while pos < n:
+        out.append(min(size, n - pos))
+        pos += out[-1]
+    return out
+
+
+def stream_through(sp, x: np.ndarray, chunks, lat=None,
+                   flush: bool = True) -> np.ndarray:
+    """Feed x (..., n) through ``sp`` in ``chunks``, then flush (unless
+    ``flush`` is False: the stream stays open); with ``lat`` a list,
+    append each process() call's host ms to it."""
+    outs, pos = [], 0
+    for c in chunks:
+        t0 = time.perf_counter()
+        outs.append(sp.process(x[..., pos : pos + c]))
+        if lat is not None:
+            lat.append((time.perf_counter() - t0) * 1e3)
+        pos += c
+    if pos != x.shape[-1]:
+        raise RuntimeError("the chunking does not cover the signal")
+    if flush:
+        outs.append(sp.flush())
+    return np.concatenate(outs, axis=-1)
+
+
+def stream_gate(what: str, want: torch.Tensor, z: np.ndarray) -> float:
+    """z >= STREAM_DB against the one-shot z, per row; returns the max
+    abs error."""
+    got = torch.as_tensor(z)
+    want = want.cpu()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"[stream] {what}: z {tuple(got.shape)} vs "
+                           f"{tuple(want.shape)} or non-finite")
+    worst = min(snr_db(want[i], got[i]) for i in range(want.shape[0]))
+    err = float((got - want).abs().max())
+    log(f"[stream] {what}: min snr vs the one-shot z over {want.shape[0]} "
+        f"row(s) {worst:.1f} dB (gate {STREAM_DB:.0f}), max abs err "
+        f"{err:.3e}")
+    if not worst >= STREAM_DB:
+        raise RuntimeError(f"[stream] {what} below the invariance gate")
+    return err
+
+
+def add_counts(total, c):
+    return dict(c) if total is None else {k: total[k] + c[k] for k in total}
+
+
+def phase_stream_one(cfg, x0: np.ndarray, want0: torch.Tensor):
+    """[stream] (a): ``StreamProcessor`` on one row in 100 ms chunks and in
+    a ragged chunking, each counted (the frames kernel, K9), z vs the
+    one-shot ``pipe(x, fs)``.  Returns (counts, per-chunk host ms)."""
+    import dsp_audio_project_tpu_torch as pt
+
+    n = x0.shape[-1]
+    total, lat = None, []
+    for name, chunks, lat_ in (
+            ("100 ms chunks", stream_chunks(n, size=STREAM_CHUNK), lat),
+            ("ragged chunks", stream_chunks(n, STREAM_RAGGED), None)):
+        z, counts = run_counted(lambda: stream_through(
+            pt.StreamProcessor(cfg, FS, device=DEVICE), x0, chunks, lat_))
+        require("stream", counts, ("fir_frames_kernel", "eq_finish"))
+        stream_gate(f"StreamProcessor, {len(chunks)} {name}", want0[None],
+                    z[None])
+        total = add_counts(total, counts)
+    return total, lat
+
+
+def phase_stream_sharded(cfg, xs: np.ndarray, z_one: torch.Tensor):
+    """[stream] (b): ``ShardedStreamProcessor`` on ``single_device_mesh()``
+    at C = 8 over the serving batch: each route counted and >= 110 dB
+    against [slice]'s one-shot z; resume and the eager step bit for bit
+    against the replayed graphs; ``set_gains`` between two steps vs a CPU
+    copy of the processor, with no re-capture.  Returns the counts of the
+    routes' runs."""
+    import dsp_audio_project_tpu_torch as pt
+    from dsp_audio_project_tpu_torch.parallel import single_device_mesh
+
+    mesh = single_device_mesh()
+    n = xs.shape[-1]
+    chunks = stream_chunks(n, (1, 4409, 66150), size=FS)
+    total, outs = None, {}
+    for name, kw, needed in STREAM_ROUTES:
+        sp = pt.ShardedStreamProcessor(cfg, FS, mesh, BATCH, **kw)
+        z, counts = run_counted(lambda: stream_through(sp, xs, chunks))
+        require(f"stream {name}", counts, needed)
+        if sp.captures != 1:
+            raise RuntimeError(f"[stream] {name}: {sp.captures} captures")
+        log(f"[stream] {name}: FL {sp._fl}, U {sp._U}, K_loc {sp._K_loc}, "
+            f"fused {sp._fused}, cat {sp._cat or sp._cat_dyn}; "
+            f"{sp._frames_done // sp._fl} steps, one graph capture")
+        stream_gate(f"sharded {name}", z_one, z)
+        total = add_counts(total, counts)
+        outs[name] = z
+
+    # Resume: a checkpoint mid-stream, then a new processor from the blob.
+    kw = dict(STREAM_ROUTES[2][1])
+    half = len(chunks) // 2
+    sp = pt.ShardedStreamProcessor(cfg, FS, mesh, BATCH, **kw)
+    cut = sum(chunks[:half])
+    part1 = stream_through(sp, xs[:, :cut], chunks[:half], flush=False)
+    blob = sp.state_bytes()
+    sp2 = pt.ShardedStreamProcessor.resume(cfg, mesh, BATCH, blob, **kw)
+    rest = stream_through(sp2, xs[:, cut:], chunks[half:])
+    if not np.array_equal(np.concatenate([part1, rest], 1), outs["cat"]):
+        raise RuntimeError("[stream] the resumed stream differs")
+    log(f"[stream] cat: checkpoint after {cut} samples ({len(blob)} bytes), "
+        "resumed: equal to the uninterrupted run bit for bit")
+
+    # The eager step, the reference the graph replay is held against.
+    for name, kw, _ in (STREAM_ROUTES[1], STREAM_ROUTES[2], STREAM_ROUTES[4]):
+        sp = pt.ShardedStreamProcessor(cfg, FS, mesh, BATCH, graphs=False,
+                                       **kw)
+        z = stream_through(sp, xs, chunks)
+        if sp.captures != 0 or not np.array_equal(z, outs[name]):
+            raise RuntimeError(f"[stream] {name}: the graph replay differs "
+                               "from the eager step")
+        log(f"[stream] {name}: graph replays equal to the eager step bit "
+            "for bit")
+
+    # set_gains between two steps, vs the same stream on a CPU copy.
+    kw = dict(STREAM_ROUTES[4][1])
+    cut = 3 * 1024 * 147 + 20000      # three steps ready, then the change
+    streams = {}
+    for dev in (DEVICE, "cpu"):
+        sp = pt.ShardedStreamProcessor(
+            cfg, FS, mesh if dev == DEVICE else single_device_mesh("cpu"),
+            BATCH, **kw)
+        part1 = sp.process(xs[:, :cut])
+        graphs = None if sp._runner is None else sp._runner.graphs
+        caps = sp.captures
+        sp.set_gains(DYN_GAINS[1])
+        part2 = stream_through(sp, xs[:, cut:], stream_chunks(n - cut))
+        if dev == DEVICE and (sp.captures != caps or caps != 1
+                              or sp._runner.graphs is not graphs):
+            raise RuntimeError("[stream] set_gains re-captured the step")
+        streams[dev] = (part1.shape[1], np.concatenate([part1, part2], 1))
+    (m_gpu, z_gpu), (m_cpu, z_cpu) = streams[DEVICE], streams["cpu"]
+    s = min(snr_db(torch.as_tensor(z_cpu[i]), torch.as_tensor(z_gpu[i]))
+            for i in range(BATCH))
+    log(f"[stream] dynamic cat, set_gains {DYN_GAINS[0]} -> {DYN_GAINS[1]} "
+        f"after {m_gpu} output samples (3 steps): card vs a CPU copy of "
+        f"the processor min snr {s:.1f} dB (gate {STREAM_DB:.0f}); one "
+        "capture before and after the change")
+    if m_gpu != m_cpu or m_gpu != 3 * 1024 * 160 or not s >= STREAM_DB:
+        raise RuntimeError("[stream] set_gains: card and CPU disagree")
+    return total
+
+
+def phase_stream_kernels(cfg, xs: np.ndarray) -> dict:
+    """K1, the frames kernel and K9 at the stream's own shapes against
+    their plain versions: K1 at num_frames = FL = 1024, pad_left = 0 on a
+    cat step's span; the frames kernel on a 100 ms chunk's span and on a
+    fused step's span; K9 at a step's (C, K_loc, G, U).  Returns the max
+    abs error of each."""
+    import dsp_audio_project_tpu_torch as pt
+    from dsp_audio_project_tpu_torch.kernels.eq_finish import (
+        eq_finish, eq_finish_plain,
+    )
+    from dsp_audio_project_tpu_torch.kernels.fir_class import (
+        fir_cat_plain, fir_frames_kernel, fir_frames_plain,
+        polyphase_fir_class_rect_cat,
+    )
+    from dsp_audio_project_tpu_torch.ops import eq as teq
+    from dsp_audio_project_tpu_torch.parallel import single_device_mesh
+
+    mesh = single_device_mesh()
+    errs = {}
+    sp = pt.ShardedStreamProcessor(cfg, FS, mesh, BATCH, frames_per_shard=1024)
+    plan, t, fl = sp._plan, sp._tab, sp._fl
+    x = torch.as_tensor(np.ascontiguousarray(xs[:, : fl * plan.s + sp._hr]),
+                        device=DEVICE)
+    y0, inj = polyphase_fir_class_rect_cat(x, plan, fl * plan.P, None,
+                                           num_frames=fl, pad_left=0,
+                                           g2=t["g2"])
+    y0_ref, inj_ref = fir_cat_plain(x, t["g2"], plan.P, plan.s, fl, 0)
+    torch.cuda.synchronize()
+    errs["k1"] = max(compare("stream", f"K1 y0 at a cat step (FL {fl})", y0,
+                             y0_ref),
+                     compare("stream", "K1 inj at a cat step", inj, inj_ref))
+    # K9 at the step's (C, K_loc, G, U), its s_true from the step's algebra.
+    K, U, d = sp._K_loc, sp._U, sp._d
+    s_in, e = teq._group_states(inj.reshape(BATCH, K, -1, d),
+                                t["group_toeplitz"])
+    sigma, _ = sp._cross_shard(
+        teq._carry_states(e, t["state_corr"], t.get("carry_w")), e,
+        torch.zeros(BATCH, d, device=DEVICE))
+    st = teq._entry_states(s_in, sigma, t["group_pows"])
+    y0g = y0.reshape(BATCH, K, -1, U)
+    errs["k9"] = compare("stream", f"K9 at a step's {tuple(y0g.shape)}",
+                         eq_finish(y0g, st, t["group_out"]),
+                         eq_finish_plain(y0g, st, t["group_out"]))
+    # The frames kernel: a fused step's span, and one 100 ms chunk's span.
+    sp = pt.ShardedStreamProcessor(cfg, FS, mesh, BATCH, frames_per_shard=512)
+    x = torch.as_tensor(np.ascontiguousarray(xs[:, : 512 * plan.s + sp._hr]),
+                        device=DEVICE)
+    g = sp._tab["g"]
+    frames = -(-STREAM_CHUNK // plan.s)
+    x1 = torch.as_tensor(xs[0, : frames * plan.s + sp._hr], device=DEVICE)
+    errs["k3"] = max(
+        compare("stream", "frames kernel at a fused step (FL 512)",
+                fir_frames_kernel(x, g, plan.s, 512, 0),
+                fir_frames_plain(x, g, plan.s, 512, 0)),
+        compare("stream", f"frames kernel on a 100 ms span ({frames} frames)",
+                fir_frames_kernel(x1, g, plan.s, frames, 0),
+                fir_frames_plain(x1[None], g, plan.s, frames, 0)[0]))
+    return errs
+
+
+def time_stream(cfg, pipe, x: torch.Tensor, lat_a: list) -> dict:
+    """[stream] (c): cat steps at C = 8 for each FL on a STREAM_LONG_SECONDS
+    signal.  After a first step (the capture), the rest of the signal goes
+    in either as one process() call (every step dispatched back to back,
+    then fetched: the steady state) or one step's input a call (each call
+    dispatches and fetches one step).  For each FL: input samples/s of
+    both feeds, device ms per step (CUDA events around a graph replay),
+    host ms per step by part (``host_split``), bytes up and down per
+    step, the pinned H2D and D2H rates of a plain copy of the
+    step's size (alone, and both at once on two streams), the step's bound
+    max(device, up / H2D, down / D2H); beside them the one-shot cat
+    chain's samples/s and (a)'s host ms per 100 ms chunk.  Returns {name:
+    one eager step} for --profile."""
+    import dsp_audio_project_tpu_torch as pt
+    from dsp_audio_project_tpu_torch.parallel import single_device_mesh
+
+    mesh = single_device_mesh()
+    n = int(STREAM_LONG_SECONDS * FS)
+    t0 = time.perf_counter()
+    xl = make_batch(n)
+    log(f"[time] stream: {BATCH} x {STREAM_LONG_SECONDS:.0f} s signal made "
+        f"in {time.perf_counter() - t0:.2f} s")
+    lat = sorted(lat_a)
+    log(f"[time] stream (a) StreamProcessor, 100 ms chunks: host ms per "
+        f"process() median {statistics.median(lat):.4f}, p90 "
+        f"{lat[int(0.9 * len(lat))]:.4f}, max {lat[-1]:.4f} over "
+        f"{len(lat)} chunks")
+    one_ms = time_ms(lambda: pipe.forward_cat(x, FS))
+    one_rate = x.numel() / (one_ms * 1e-3)
+    xs_host = x.cpu().numpy()
+    host_shot = host_ms(lambda: pipe.forward_cat(
+        torch.as_tensor(xs_host, device=DEVICE), FS).cpu(), reps=5)
+    log(f"[time] stream one-shot forward_cat, batch {BATCH} x "
+        f"{SECONDS:.0f} s: {one_ms:.4f} ms device-resident (median of "
+        f"{REPS}) -> {one_rate:.4e} input samples/s; host array to host "
+        f"array {host_shot[0]:.4f} ms (median of 5) -> "
+        f"{x.numel() / (host_shot[0] * 1e-3):.4e} samples/s")
+    profiles = {}
+    for fl in STREAM_FLS:
+        rates, parts = {}, {}
+        # The first "one call" feed warms the pinned host allocator's cache
+        # (its pool of z buffers grows to the number of steps); not printed.
+        for feed in ("warm-up", "one call", "a step a call"):
+            sp = pt.ShardedStreamProcessor(cfg, FS, mesh, BATCH,
+                                           frames_per_shard=fl)
+            step_in = fl * sp._s
+            first = step_in + sp._W + sp._lo + 2 * FS
+            sp.process(xl[:, :first])             # the first step: capture
+            runner = sp._runner
+            split = host_split(sp)
+            chunks = ([n - first] if feed != "a step a call"
+                      else stream_chunks(n - first, size=step_in))
+            done0 = sp._frames_done
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pos = first
+            for c in chunks:
+                sp.process(xl[:, pos : pos + c])
+                pos += c
+            wall = (time.perf_counter() - t1) * 1e3
+            steps = (sp._frames_done - done0) // fl
+            rates[feed] = (steps * step_in * BATCH / wall * 1e3,
+                           wall / steps, steps)
+            parts[feed] = {k: sum(v) / steps for k, v in split.items()}
+            parts[feed]["rest of process()"] = (
+                wall / steps - sum(parts[feed].values()))
+            if feed != "a step a call":
+                del sp, runner
+                gc.collect()       # the step's bound method closes a cycle
+        del rates["warm-up"], parts["warm-up"]
+        up = 4 * BATCH * (step_in + sp._hr)
+        down = 4 * BATCH * fl * sp._P
+        dev_ms = time_ms(runner.graphs[0].replay, reps=10, warmup=3)
+        h2d, d2h, both_ms = copy_rates(up, down)
+        bound_ms = max(dev_ms, up / h2d * 1e3, down / d2h * 1e3)
+        for feed, r in rates.items():
+            log(f"[time] stream cat FL {fl} (K_loc {sp._K_loc}, {BATCH} "
+                f"channels), {feed}: {r[2]} steps, {r[1]:.4f} ms per step "
+                f"-> {r[0]:.4e} input samples/s ({r[0] / BATCH / FS:.1f}x "
+                f"real time a channel, {r[1] / bound_ms:.2f}x the bound); "
+                "host ms per step: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in parts[feed].items()))
+        log(f"[time] stream cat FL {fl}: device {dev_ms:.4f} ms per step "
+            f"(CUDA events around a graph replay, median of 10); up "
+            f"{up / 1e6:.3f} MB, down {down / 1e6:.3f} MB per step; pinned "
+            f"H2D {h2d / 1e9:.2f} GB/s, D2H {d2h / 1e9:.2f} GB/s, both at "
+            f"once {both_ms:.4f} ms (plain copies of the step's size, median "
+            f"of 10); bound {bound_ms:.4f} ms = max(device, up/H2D "
+            f"{up / h2d * 1e3:.4f}, down/D2H {down / d2h * 1e3:.4f}); "
+            f"one-shot cat chain {one_rate:.4e} samples/s device-resident")
+        if fl == 8192:
+            profiles[f"stream cat step, FL {fl}, eager"] = functools.partial(
+                sp._step, runner.x_dev[0], runner.sigma.clone())
+        del sp, runner
+    return profiles
+
+
+def host_split(sp) -> dict:
+    """Wrap a stream processor's step dispatch and fetch with host clocks:
+    {part: [ms, ...]} for the wait for a free input slot, the span's copy
+    into the pinned buffer (with the step's bookkeeping), the enqueue
+    (upload, replay, download), the wait for a step's download and its
+    copy out of the pinned buffer."""
+    runner = sp._runner
+    out = {k: [] for k in ("slot wait", "span fill", "enqueue",
+                           "fetch wait", "fetch copy")}
+    run_step, host_buffer, run, fetch = (sp._run_step, runner.host_buffer,
+                                         runner.run, runner.fetch)
+
+    def clocked(name, fn):
+        def wrapped(*args):
+            t0 = time.perf_counter()
+            res = fn(*args)
+            out[name].append((time.perf_counter() - t0) * 1e3)
+            return res
+        return wrapped
+
+    def dispatch():
+        n0 = len(out["slot wait"]), len(out["enqueue"])
+        t0 = time.perf_counter()
+        res = run_step()
+        out["span fill"].append((time.perf_counter() - t0) * 1e3
+                                - sum(out["slot wait"][n0[0]:])
+                                - sum(out["enqueue"][n0[1]:]))
+        return res
+
+    def fetch_split(pending, dest):
+        t0 = time.perf_counter()
+        pending[1].synchronize()
+        out["fetch wait"].append((time.perf_counter() - t0) * 1e3)
+        clocked("fetch copy", fetch)(pending, dest)
+
+    runner.host_buffer = clocked("slot wait", host_buffer)
+    runner.run = clocked("enqueue", run)
+    runner.fetch = fetch_split
+    sp._run_step = dispatch
+    return out
+
+
+def copy_rates(up: int, down: int) -> tuple[float, float, float]:
+    """Pinned host <-> device: (H2D bytes/s of ``up`` bytes, D2H bytes/s of
+    ``down`` bytes, ms of both at once on two streams), plain copies timed
+    with CUDA events, median of 10."""
+    h_up = torch.empty(up // 4, pin_memory=True)
+    d_up = torch.empty(up // 4, device=DEVICE)
+    h_dn = torch.empty(down // 4, pin_memory=True)
+    d_dn = torch.empty(down // 4, device=DEVICE)
+    t_up = time_ms(lambda: d_up.copy_(h_up, non_blocking=True), 10, 3)
+    t_dn = time_ms(lambda: h_dn.copy_(d_dn, non_blocking=True), 10, 3)
+    side = torch.cuda.Stream()
+
+    def both():
+        side.wait_stream(torch.cuda.current_stream())
+        d_up.copy_(h_up, non_blocking=True)
+        with torch.cuda.stream(side):
+            h_dn.copy_(d_dn, non_blocking=True)
+        torch.cuda.current_stream().wait_stream(side)
+
+    return up / (t_up * 1e-3), down / (t_dn * 1e-3), time_ms(both, 10, 3)
+
+
 def host_ms(fn, reps: int = REPS) -> tuple[float, float, float]:
     """(median, min, max) host-clock ms until one call returns, the device
     idle before it: what the host spends to enqueue a call."""
@@ -1421,7 +1848,8 @@ def host_ms(fn, reps: int = REPS) -> tuple[float, float, float]:
     return statistics.median(times), min(times), max(times)
 
 
-def phase_profile(chains: dict, calls: int = 5) -> None:
+def phase_profile(chains: dict, calls: int = 5,
+                  shape: str = f"batch {BATCH} x {SECONDS:.0f} s") -> None:
     """torch.profiler over ``calls`` calls of each chain (after one warm-up
     step): device time per call by kernel, and the total."""
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -1445,8 +1873,8 @@ def phase_profile(chains: dict, calls: int = 5) -> None:
                 rows.append((us / calls, evt.count / calls, evt.key))
         rows.sort(reverse=True)
         total = sum(r[0] for r in rows)
-        log(f"[profile] {name}, batch {BATCH} x {SECONDS:.0f} s: device "
-            f"kernel time {total:.1f} us per call over {calls} calls")
+        log(f"[profile] {name}, {shape}: device kernel time {total:.1f} us "
+            f"per call over {calls} calls")
         for us, per_call, key in rows[:12]:
             log(f"[profile]   {us:9.1f} us {100 * us / total:5.1f} % "
                 f"x{per_call:g}  {key[:90]}")
@@ -1484,7 +1912,8 @@ def main() -> None:
     want = oracle_outputs(pipe, xs)
     log(f"[oracle] numpy oracle for {BATCH} signals: "
         f"{time.perf_counter() - t0:.2f} s")
-    runs = [phase_slice(pipe, x, want), phase_frames(pipe, x, want)]
+    slice_counts, z_one = phase_slice(pipe, x, want)
+    runs = [slice_counts, phase_frames(pipe, x, want)]
     analysis_counts, analysis_paths = phase_analysis(cfg, x, xs, want)
     runs.append(analysis_counts)
     explicit_counts, pipe_explicit, y_flat = phase_explicit(cfg, x, want)
@@ -1494,7 +1923,15 @@ def main() -> None:
     del y_flat
     e6, e6_counts = phase_e6(x)
     dyn_counts, dyn_checks, dyn = phase_dynamic(pipe, x, want)
-    runs += [e7_counts, e6_counts, k3_counts, dyn_counts]
+    stream_one_counts, stream_lat = phase_stream_one(
+        cfg, xs[0], pipe(x[:1], FS).output[0])
+    stream_counts = phase_stream_sharded(cfg, xs, z_one)
+    del z_one
+    for tag, err in phase_stream_kernels(cfg, xs).items():
+        k = {"k1": k1, "k3": k3, "k9": k9}[tag]
+        k["max_abs_err"] = max(k["max_abs_err"], err)
+    runs += [e7_counts, e6_counts, k3_counts, dyn_counts, stream_one_counts,
+             stream_counts]
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
 
     chains = {
@@ -1524,6 +1961,7 @@ def main() -> None:
         f"torch, torch, kernel): kernel {finish['kernel']} ms, torch "
         f"{finish['torch']} ms per call")
     dyn_chains = time_dynamic(pipe, x, dyn)
+    stream_steps = time_stream(cfg, pipe, x, stream_lat)
 
     kernels = {"k1": k1, "k2": k2, "k3": k3, "k9": k9, "k2c": k2c,
                "k7": k7, "k8": k8, "e2a": e2a, "e2b": e2b, "e7": e7, "e6": e6,
@@ -1553,6 +1991,7 @@ def main() -> None:
             f"bound {k['bound'][0]:.4f} ms ({k['bound'][1]}){note}")
 
     if profile_too:
+        phase_profile(stream_steps, shape=f"{BATCH} channels x one step")
         phase_profile({**chains, **dyn_chains,
                        "E6 rfft_butterfly at the STFT's (41344, 2048) frames":
                            e6["kern"],

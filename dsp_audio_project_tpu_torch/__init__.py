@@ -5,14 +5,21 @@ EQ cascade, |rfft| spectra of x, y and z) and the analysis ops on one
 NVIDIA Hopper GPU, with hand-written CUDA kernels for their hot loops
 (kernels/): the EQ-fused cat forwards (slice 1), ``AudioPipeline.__call__``
 with the frames and flat forwards (slice 2), the STFT and long-window
-spectra (slice 3), the explicit-kernel routes (slice 4) and dynamic gains
-(slice 5: ``AudioPipeline.forward_{frames,cat}_dynamic*``).  The JAX
+spectra (slice 3), the explicit-kernel routes (slice 4), dynamic gains
+(slice 5: ``AudioPipeline.forward_{frames,cat}_dynamic*``) and streaming
+(slice 6: ``StreamProcessor``, ``ShardedStreamProcessor`` on a 1x1 mesh,
+``StreamState``, ``equalize_stream``).  The JAX
 package beside it is the reference the port is tested against; this
 package imports neither jax nor it.
 
 Public entry points:
     process(x, fs, config)            the full SRC->EQ chain
     resample / equalize               individual stages
+    equalize_stream                   EQ of a chunk with its carry state
+    StreamProcessor                   chunked SRC->EQ of one signal
+    ShardedStreamProcessor            chunked SRC->EQ of C channels in
+                                      super-steps on a mesh (1x1 for now)
+    StreamState                       a stream's carry, as bytes
     equalize_dynamic[_frames[_ops]],
     build_dynamic_operators           EQ with the gains as an input
     magnitude_spectrum, angular_spectrum, spectrum_db,
@@ -32,6 +39,7 @@ pin_fp32()
 from .config import (  # noqa: E402
     EQConfig,
     KernelConfig,
+    MeshConfig,
     PipelineConfig,
     SpectrumConfig,
     SRCConfig,
@@ -42,7 +50,7 @@ from .models.chain import (  # noqa: E402
     design_tables,
     tables_from_numpy,
 )
-from .ops.eq import equalize  # noqa: E402
+from .ops.eq import equalize, equalize_stream  # noqa: E402
 from .ops.eq_dynamic import (  # noqa: E402
     build_dynamic_operators,
     equalize_dynamic,
@@ -58,6 +66,11 @@ from .ops.spectrum import (  # noqa: E402
     stft_planes,
 )
 from .ops.src import resample  # noqa: E402
+from .streaming import (  # noqa: E402
+    ShardedStreamProcessor,
+    StreamProcessor,
+    StreamState,
+)
 
 
 def process(x, fs, config: PipelineConfig = PipelineConfig(), device=None):
@@ -72,10 +85,14 @@ __all__ = [
     "AudioPipeline",
     "EQConfig",
     "KernelConfig",
+    "MeshConfig",
     "PipelineConfig",
     "PipelineOutputs",
     "SRCConfig",
+    "ShardedStreamProcessor",
     "SpectrumConfig",
+    "StreamProcessor",
+    "StreamState",
     "angular_spectrum",
     "build_dynamic_operators",
     "design_tables",
@@ -83,6 +100,7 @@ __all__ = [
     "equalize_dynamic",
     "equalize_dynamic_frames",
     "equalize_dynamic_frames_ops",
+    "equalize_stream",
     "magnitude_spectrum",
     "process",
     "resample",

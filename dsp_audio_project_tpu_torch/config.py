@@ -1,9 +1,10 @@
 """Static configuration for the PyTorch/CUDA audio-DSP pipeline.
 
-A copy of the parts of ``dsp_audio_project_tpu/config.py`` that the port's
-EQ-fused serving chain reads: the SRC, EQ and spectrum dataclasses (the
-reference's hardcoded knobs, defaults unchanged) and the two precision flags
-of ``KernelConfig``.  Pure Python, so the GPU host needs no JAX to import it;
+A copy of the parts of ``dsp_audio_project_tpu/config.py`` that the port
+reads: the SRC, EQ and spectrum dataclasses (the reference's hardcoded
+knobs, defaults unchanged), ``MeshConfig`` (the streams' device mesh,
+parallel/mesh.py) and the path and precision flags of ``KernelConfig``.
+Pure Python, so the GPU host needs no JAX to import it;
 tests/test_torch_design.py holds it equal to the original.
 """
 from __future__ import annotations
@@ -138,6 +139,22 @@ class SpectrumConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Logical device mesh for sharded processing.
+
+    Axes: ``channel`` shards independent audio channels, ``block`` shards the
+    time axis into contiguous blocks (overlap-save halos for the FIR, state
+    carries for the IIR).  The port builds 1x1 meshes only
+    (parallel/mesh.py).
+    """
+
+    channel_axis: str = "channel"
+    block_axis: str = "block"
+    channel_devices: int = 1
+    block_devices: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class KernelConfig:
     """Path selection and precision flags of the chain.
 
@@ -178,4 +195,5 @@ class PipelineConfig:
     src: SRCConfig = SRCConfig()
     eq: EQConfig = EQConfig()
     spectrum: SpectrumConfig = SpectrumConfig()
+    mesh: MeshConfig = MeshConfig()
     kernels: KernelConfig = KernelConfig()

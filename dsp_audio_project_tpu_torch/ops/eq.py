@@ -20,15 +20,19 @@ torch products, in float32 with TF32 off (utils/precision).  Host tables
 (float64 numpy) are copies of the JAX design code and are held bit-for-bit
 equal by the tests.  Entry points: ``equalize`` (flat signals, block 8192 /
 unroll 128 by default), ``equalize_frames`` (the frames path's (F, P)
-frames at unroll P), ``equalize_frames_cat`` (the cat kernel's output) and
+frames at unroll P), ``equalize_frames_cat`` (the cat kernel's output),
 ``equalize_pallas`` (``iir_path='pallas'``: the same recurrence as two
-kernel passes over the blocks, E2a and E2b, around the carry solve).
+kernel passes over the blocks, E2a and E2b, around the carry solve) and
+``equalize_stream`` / ``final_state`` (a chunk and its carry state, for
+the streams of streaming.py, which also use the split passes
+``_grouped_parts`` / ``_grouped_finish``).
 Every product is float32: the JAX package's ``fast`` bf16x3 option is
 accepted and has no effect.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Mapping, Tuple
 
 import numpy as np
@@ -244,9 +248,40 @@ def _true_states(inj: torch.Tensor, tables: Mapping[str, torch.Tensor],
     s_in, end_states = _group_states(inj, tables["group_toeplitz"])
     sigma = _carry_states(end_states, tables["state_corr"],
                           tables.get("carry_w"), sigma0)
-    s_true = s_in + torch.einsum("gef,...kf->...kge", tables["group_pows"],
-                                 sigma)
-    return s_true, end_states, sigma
+    return (_entry_states(s_in, sigma, tables["group_pows"]), end_states,
+            sigma)
+
+
+def _entry_states(s_in: torch.Tensor, sigma: torch.Tensor,
+                  group_pows: torch.Tensor) -> torch.Tensor:
+    """s_true = s_in + A^{gU} sigma: the true state entering each group,
+    (..., K, G, d) contiguous, from the zero-init group states and the true
+    block-initial states sigma (..., K, d)."""
+    return s_in + torch.einsum("gef,...kf->...kge", group_pows, sigma)
+
+
+def _grouped_parts(x_g: torch.Tensor, tables: Mapping[str, torch.Tensor]):
+    """Steps 1-2 on (..., K, G, U): (y0, s_in, end_states), the state pass
+    split before the carry solve, for callers that inject the carry between
+    the passes (the streams).  Step 1 is one product against ``w_frames``;
+    y0 is a column slice of it, which K9 reads in place."""
+    U = x_g.shape[-1]
+    d = tables["state_corr"].shape[0]
+    cat = x_g @ tables["w_frames"]                      # (..., K, G, Vp)
+    s_in, end_states = _group_states(cat[..., U:U + d],
+                                     tables["group_toeplitz"])
+    return cat[..., :U], s_in, end_states
+
+
+def _grouped_finish(y0: torch.Tensor, s_in: torch.Tensor,
+                    sigma: torch.Tensor,
+                    tables: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """Output pass of ``_grouped_parts`` once the true sigma is known: the
+    readout and the clip as one K9 pass.  Clipping is memoryless, so a
+    stream that clips each step equals the JAX package's clip after its
+    finish."""
+    return eq_finish(y0, _entry_states(s_in, sigma, tables["group_pows"]),
+                     tables["group_out"])
 
 
 def _grouped_run(
@@ -254,20 +289,19 @@ def _grouped_run(
     tables: Mapping[str, torch.Tensor],
     sigma0: torch.Tensor | None = None,
 ):
-    """One full grouped EQ pass on (..., K, G, U): (z, end_states, sigma).
+    """One full grouped EQ pass on (..., K, G, U): (z, s_true, end_states,
+    sigma).
 
     The JAX package's ``_grouped_run`` followed by its callers' clip: z is
     clipped, because the readout and the clip are one K9 pass
-    (``eq_finish``).  Step 1 is one product against ``w_frames``; y0 is
-    read by K9 as a column slice of it.
+    (``eq_finish``).  ``sigma0``: the incoming state of block 0.
     """
-    U = x_g.shape[-1]
-    d = tables["state_corr"].shape[0]
-    cat = x_g @ tables["w_frames"]                      # (..., K, G, Vp)
-    s_true, end_states, sigma = _true_states(cat[..., U:U + d], tables,
-                                             sigma0)
-    z = eq_finish(cat[..., :U], s_true, tables["group_out"])
-    return z, end_states, sigma
+    y0, s_in, end_states = _grouped_parts(x_g, tables)
+    sigma = _carry_states(end_states, tables["state_corr"],
+                          tables.get("carry_w"), sigma0)
+    s_true = _entry_states(s_in, sigma, tables["group_pows"])
+    return (eq_finish(y0, s_true, tables["group_out"]), s_true, end_states,
+            sigma)
 
 
 def equalize(x, fs: int, cfg: EQConfig, block: int = 8192,
@@ -357,7 +391,7 @@ def equalize_frames(
     x = frames.to(torch.float32)
     if K * G != F_:
         x = torch.nn.functional.pad(x, (0, 0, 0, K * G - F_))
-    z, _, _ = _grouped_run(x.reshape(lead + (K, G, P)), tables)
+    z = _grouped_run(x.reshape(lead + (K, G, P)), tables)[0]
     return z.reshape(lead + (K * G, P))[..., :F_, :]
 
 
@@ -366,21 +400,114 @@ def _equalize_blocks(
     tables: Mapping[str, torch.Tensor],
     block: int,
     sigma0: torch.Tensor | None = None,
-) -> torch.Tensor:
+    with_state: bool = False,
+):
     """Block-parallel recurrence over (..., N) -> clipped (..., N).
 
-    ``sigma0``: optional incoming state (..., d).  The JAX package's
-    ``with_state`` (the state after sample N, for streaming) is not ported
-    yet.  The output is clipped: the readout and the clip are one K9 pass.
+    ``sigma0``: optional incoming state (..., d).  ``with_state``: also
+    return the state after sample N, s_end = A^block sigma_last + e_last;
+    it requires N to be a multiple of ``block`` (zero-pad blocks would
+    corrupt the carry; ``equalize_stream`` takes ragged lengths).  The
+    output is clipped: the readout and the clip are one K9 pass.
     """
     n = x.shape[-1]
     U = tables["w_frames"].shape[0]
     K = -(-n // block)
+    if with_state and K * block != n:
+        raise ValueError(
+            f"state carry requires length {n} to be a multiple of block "
+            f"{block}")
     if K * block != n:
         x = torch.nn.functional.pad(x, (0, K * block - n))
     x_g = x.reshape(x.shape[:-1] + (K, block // U, U))
-    z, _, _ = _grouped_run(x_g, tables, sigma0)
-    return z.reshape(x.shape[:-1] + (K * block,))[..., :n]
+    z, _, end_states, sigma = _grouped_run(x_g, tables, sigma0)
+    z = z.reshape(x.shape[:-1] + (K * block,))[..., :n]
+    if not with_state:
+        return z
+    return z, (sigma[..., -1, :] @ tables["state_corr"].T
+               + end_states[..., -1, :])
+
+
+def stream_tables(ops: BlockOperators, device) -> dict:
+    """The ragged tail's float32 device tables: ``group_in`` (U, d) and
+    ``pows_u`` (U, d, d), A^m for m < U built in float64; cached per (ops,
+    device)."""
+    key = ("stream", id(ops), str(torch.device(device)))
+    out = _device_tables.get(key)
+    if out is None:
+        A = np.asarray(ops.A, dtype=np.float64)
+        pows = [np.eye(A.shape[0])]
+        for _ in range(ops.unroll - 1):
+            pows.append(pows[-1] @ A)
+        out = {"group_in": torch.as_tensor(
+                   np.asarray(ops.group_in, np.float32), device=device),
+               "pows_u": torch.as_tensor(
+                   np.asarray(pows, np.float32), device=device)}
+        _device_tables[key] = out
+    return out
+
+
+def equalize_stream(x, fs: int, cfg: EQConfig, state=None,
+                    block: int = 1024, device=None):
+    """Streaming EQ: process a chunk, return (z, carry_state).
+
+    Feeding chunks of any sizes through this function gives the samples of
+    one ``equalize`` call on their concatenation: the carry is the
+    cascade's whole internal state (d values, two a band), in the Schur
+    basis of the config, the basis the JAX package's ``equalize_stream``
+    uses, so a state from either package continues in the other; treat it
+    as opaque.  ``x`` (..., n) and ``device`` as in ``equalize``;
+    ``state`` (..., d) or None (zero).  Each chunk's output is clipped as
+    the one-shot path clips once (memoryless, so they agree).  Bypass
+    returns x unclipped and an empty (..., 0) state; no active band clips
+    and returns an empty state.
+
+    One grouped pass over ceil(n / block) blocks from ``state`` (group
+    length gcd(block, 128); the JAX package's 16 only shapes its own
+    tables).  A ragged chunk is zero-padded to whole blocks, which leaves
+    its outputs exact (the recurrence is causal); the JAX package runs the
+    ragged tail as a per-sample scan, which on a card would be one tiny
+    launch per sample.  The state after sample r = gU + m of the last
+    block comes from the group algebra instead: A^m s_true[g] + the last
+    m samples @ the last m rows of group_in.
+    """
+    x = as_input(x, device, "equalize_stream")
+    lead, n = x.shape[:-1], x.shape[-1]
+    if cfg.bypass:
+        return x, x.new_zeros(lead + (0,))
+    bands = cfg.active_bands(fs)
+    if not bands:
+        return torch.clamp(x, -1.0, 1.0), x.new_zeros(lead + (0,))
+    U = math.gcd(block, 128)
+    ops = make_block_operators(bands, int(fs), cfg.q, block, U)
+    d = ops.A.shape[0]
+    state = (x.new_zeros(lead + (d,)) if state is None
+             else torch.as_tensor(state, dtype=torch.float32,
+                                  device=x.device))
+    if n == 0:
+        return x, state
+    K = -(-n // block)
+    tables = block_tables(ops, x.device, K)
+    r = n - (K - 1) * block                   # samples in the last block
+    if r == block:
+        return _equalize_blocks(x, tables, block, state, with_state=True)
+    x_g = torch.nn.functional.pad(x, (0, K * block - n)).reshape(
+        lead + (K, block // U, U))
+    z, s_true, _, _ = _grouped_run(x_g, tables, state)
+    z = z.reshape(lead + (K * block,))[..., :n]
+    g, m = divmod(r, U)
+    s_end = s_true[..., K - 1, g, :]
+    if m:
+        tail = stream_tables(ops, x.device)
+        s_end = (s_end @ tail["pows_u"][m].T
+                 + x[..., n - m:] @ tail["group_in"][U - m:])
+    return z, s_end
+
+
+def final_state(x, fs: int, cfg: EQConfig, block: int = 1024, device=None):
+    """End state of the cascade after consuming ``x`` (see
+    ``equalize_stream``)."""
+    return equalize_stream(x, fs, cfg, None, block, device)[1]
 
 
 def equalize_frames_cat(

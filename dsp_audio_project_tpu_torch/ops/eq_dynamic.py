@@ -30,6 +30,13 @@ per gain change (``build_cat_tables_dyn``); the JAX package's rotated
 banks, DPAD packing and bf16 hi/lo split are TPU layouts and are not
 ported.  Every product is float32: ``fast`` is accepted and has no effect.
 
+The sharded stream's dynamic mode (streaming.py) takes
+``DynStreamOperators``: the same tables plus its carry tables (pk, the
+cross-shard weights, w_out, pow_nb, the local carry triangle), built on
+the host in float64 by ``build_dynamic_stream_operators_host`` as the JAX
+package builds them, bit for bit; ``dyn_stream_operators_from_numpy``
+carries the JAX package's across (tests).
+
 Semantics, the dynamic path's and not the static path's: all six bands are
 kept (d = 12), a gain with |g| <= 0.1 dB is masked to an exact 0 dB band,
 and the output is always clipped.  Nothing here calls
@@ -212,6 +219,84 @@ def dyn_operators_from_numpy(arrays: Sequence, device) -> DynOperators:
     return DynOperators(*upload_dyn_tables(arrays, device))
 
 
+class DynStreamOperators(NamedTuple):
+    """``DynOperators`` + the sharded stream's carry tables (float32 tensors
+    on one device), as the JAX package's:
+
+    * ``pk[k]`` = (A^block)^k for k < K_loc;
+    * ``weights`` (nb, nb, d, d): [dst, src] = A_shard^{dst-1-src} for
+      src < dst (A_shard = A^{block*K_loc}), the cross-shard map;
+    * ``w_out[i]`` = A_shard^{nb-1-i}, the outgoing carry's weights;
+    * ``pow_nb[k]`` = A_shard^k for k <= nb, the incoming carry's;
+    * ``carry_loc`` (K_loc d, K_loc d): the local carry triangle mapping
+      [0, e_0..e_{K-2}] to [sigma_0..sigma_{K-1}], None when K_loc == 1.
+
+    ``ShardedStreamProcessor.set_gains`` copies a new set into the step's
+    table buffers in place, so a captured step is replayed as it is.
+    """
+
+    ops: DynOperators
+    pk: torch.Tensor
+    weights: torch.Tensor
+    w_out: torch.Tensor
+    pow_nb: torch.Tensor
+    carry_loc: Optional[torch.Tensor]
+
+
+def build_dynamic_stream_operators_host(
+    gains_db,
+    fs: int,
+    cfg: EQConfig = EQConfig(),
+    unroll: int = 128,
+    groups_per_block: int = 128,
+    num_blocks: int = 1,
+    num_shards: int = 1,
+    device=None,
+) -> DynStreamOperators:
+    """``DynStreamOperators`` for concrete gains: float64 numpy tables
+    (``host_dyn_tables`` without its pk, then pk, weights, w_out and
+    pow_nb, computed as the JAX package computes them) rounded to float32
+    last, uploaded, and the two triangles (the group Toeplitz, the local
+    carry) expanded on the device by exact gathers; the same float32
+    values as the JAX package's builder.  ``num_blocks`` = K_loc (EQ
+    blocks a step), ``num_shards`` = nb (the mesh's block axis).
+    ``device``: the card unless the caller asks for another."""
+    if device is None:
+        device = default_device("build_dynamic_stream_operators_host")
+    tabs = host_dyn_tables(gains_db, fs, cfg, unroll, groups_per_block)
+    A_blk = tabs[4]
+    d, K, nb = A_blk.shape[0], num_blocks, num_shards
+    pk = _host_powers(A_blk, K)                         # (K, d, d)
+    A_shard = np.linalg.matrix_power(A_blk, K)          # A^{block*K}
+    pow_nb = _host_powers(A_shard, nb + 1)              # (nb+1, d, d)
+    weights = np.zeros((nb, nb, d, d))
+    for dst in range(nb):
+        for srcd in range(dst):
+            weights[dst, srcd] = pow_nb[dst - 1 - srcd]
+    w_out = np.stack([pow_nb[nb - 1 - i] for i in range(nb)])
+    ops = _expand_dyn_operators(*upload_dyn_tables(tabs[:5] + (None,),
+                                                   device))
+    pk, weights, w_out, pow_nb = upload_dyn_tables(
+        (pk, weights, w_out, pow_nb), device)
+    carry_loc = _lower_triangle(pk, K, d) if K > 1 else None
+    return DynStreamOperators(ops=ops, pk=pk, weights=weights, w_out=w_out,
+                              pow_nb=pow_nb, carry_loc=carry_loc)
+
+
+def dyn_stream_operators_from_numpy(arrays, device) -> DynStreamOperators:
+    """``DynStreamOperators`` from arrays in its field order (a JAX
+    ``DynStreamOperators``: its ``ops`` as in ``dyn_operators_from_numpy``,
+    then pk, weights, w_out, pow_nb and carry_loc, which may be None), as
+    float32 tensors on ``device``."""
+    arrays = tuple(arrays)
+    if len(arrays) != len(DynStreamOperators._fields):
+        raise ValueError(f"expected {len(DynStreamOperators._fields)} "
+                         f"entries ({', '.join(DynStreamOperators._fields)})"
+                         f", got {len(arrays)}")
+    return DynStreamOperators(dyn_operators_from_numpy(arrays[0], device),
+                              *upload_dyn_tables(arrays[1:], device))
+
+
 # ---- the device builder (gains as a device tensor, float64) ---------------
 
 
@@ -392,17 +477,23 @@ def _dyn_states(inj: torch.Tensor, ops: DynOperators) -> torch.Tensor:
     return s_in + torch.einsum("gef,...kf->...kge", ops.pows_g, sigma)
 
 
+def dyn_frames_weights(ops: DynOperators) -> torch.Tensor:
+    """(U, Vp) [fir_t | group_in | 0]: the frames EQ's first product, its
+    columns padded to a multiple of 4, so that K9 reads y0 as a column
+    slice with 16-byte aligned rows (``ops/eq.frames_weights``)."""
+    U, d = ops.group_in.shape
+    return F.pad(torch.cat([ops.fir_t, ops.group_in], dim=1),
+                 (0, -(U + d) % 4))
+
+
 def _dynamic_grouped(x_g: torch.Tensor, ops: DynOperators) -> torch.Tensor:
     """Grouped input (..., K, G, U) -> clipped output (..., K, G, U).
 
-    As the static frames EQ: one product against [fir_t | group_in] (its
-    columns padded to a multiple of 4, so that K9 reads y0 as a column
-    slice with 16-byte aligned rows), the states, then K9.
+    As the static frames EQ: one product against ``dyn_frames_weights``,
+    the states, then K9.
     """
     U, d = ops.group_in.shape
-    w = torch.cat([ops.fir_t, ops.group_in], dim=1)
-    w = F.pad(w, (0, -(U + d) % 4))
-    cat = x_g @ w
+    cat = x_g @ dyn_frames_weights(ops)
     s_true = _dyn_states(cat[..., U:U + d], ops)
     return eq_finish(cat[..., :U], s_true, ops.group_out)
 

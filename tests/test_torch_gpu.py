@@ -29,7 +29,11 @@ vs on the CPU, for each builder (> 110 dB; the cat path >= 110 dB against
 the frames path), K1 at V = 172 and K9 at d = 12 vs plain (> 120 dB), and
 a gain change inside one captured CUDA graph (bit for bit against the
 eager call, or >= 130 dB where a captured product takes another cuBLAS
-algorithm).
+algorithm).  Streaming: each route of ``ShardedStreamProcessor`` on the
+card vs the same processor on the CPU (> 110 dB), its kernels launched and
+its step captured once; the graph replay bit for bit against the eager
+step; resume bit for bit; ``set_gains`` with no re-capture (> 110 dB vs
+the CPU); ``StreamProcessor`` in 100 ms chunks vs the CPU (> 110 dB).
 """
 from __future__ import annotations
 
@@ -839,3 +843,121 @@ def test_gain_change_in_cuda_graphs(cuda):
         assert snr_db(host(want), host(got)) > 110
     assert caches == (teq.make_block_operators.cache_info(),
                       len(teq._device_tables))
+
+
+# ---- streaming (streaming.py) ----------------------------------------------
+
+STREAM_ROUTES = {
+    "flat": (dict(fused=False, frames_per_shard=1024),
+             ("fir_frames_kernel", "eq_finish")),
+    "fused frames": (dict(frames_per_shard=512),
+                     ("fir_frames_kernel", "eq_finish")),
+    "cat": (dict(frames_per_shard=1024),
+            ("polyphase_fir_class_rect_cat", "eq_finish")),
+    "dynamic frames": (dict(frames_per_shard=512, gains_db=DYN_GAINS[0]),
+                       ("fir_frames_kernel", "eq_finish")),
+    "dynamic cat": (dict(frames_per_shard=1024, gains_db=DYN_GAINS[0]),
+                    ("polyphase_fir_class_rect_cat", "eq_finish")),
+}
+
+
+def stream_cfg():
+    return pt.PipelineConfig(src=pt.SRCConfig(L=160, M=147),
+                             eq=pt.EQConfig.from_gains(GAINS))
+
+
+def stream(sp, x, chunks):
+    outs, pos = [], 0
+    for c in chunks:
+        outs.append(sp.process(x[..., pos : pos + c]))
+        pos += c
+    assert pos == x.shape[-1]
+    outs.append(sp.flush())
+    return np.concatenate(outs, axis=-1)
+
+
+def sharded(device, route, channels=2, **kw):
+    from dsp_audio_project_tpu_torch.parallel import single_device_mesh
+
+    return pt.ShardedStreamProcessor(
+        stream_cfg(), FS, single_device_mesh(device), channels,
+        **STREAM_ROUTES[route][0], **kw)
+
+
+STREAM_CHUNKS = [1, 4409, 100000, 66150, 200000, 70440]   # 441,000 = 10 s
+
+
+@pytest.mark.parametrize("route", list(STREAM_ROUTES))
+def test_stream_routes_on_card_match_cpu(cuda, route):
+    """Each route of the sharded stream on the card (graph replays) vs the
+    same processor on the CPU: > 110 dB; the route's kernels launched (at
+    the warm-up and the capture), one capture."""
+    x = make_x(2, 10 * FS, seed=30)
+    reset_launch_counts()
+    sp = sharded(None, route)
+    z = stream(sp, x, STREAM_CHUNKS)
+    counts = launch_counts()
+    assert all(counts[k] >= 1 for k in STREAM_ROUTES[route][1]), counts
+    assert sp.captures == 1 and sp._frames_done // sp._fl >= 2
+    want = stream(sharded("cpu", route), x, STREAM_CHUNKS)
+    assert z.shape == want.shape
+    assert min(snr_db(want[c], z[c]) for c in range(2)) > 110
+
+
+@pytest.mark.parametrize("route", ["fused frames", "cat", "dynamic cat"])
+def test_stream_graph_replay_equals_eager_step(cuda, route):
+    x = make_x(2, 10 * FS, seed=31)
+    replayed = stream(sharded(None, route), x, STREAM_CHUNKS)
+    sp = sharded(None, route, graphs=False)
+    eager = stream(sp, x, STREAM_CHUNKS)
+    assert sp.captures == 0
+    np.testing.assert_array_equal(replayed, eager)
+
+
+def test_stream_resume_on_card_is_bit_for_bit(cuda):
+    from dsp_audio_project_tpu_torch.parallel import single_device_mesh
+
+    x = make_x(2, 10 * FS, seed=32)
+    full = stream(sharded(None, "cat"), x, STREAM_CHUNKS)
+    sp = sharded(None, "cat")
+    part1 = np.concatenate([sp.process(x[:, :104410]),
+                            sp.process(x[:, 104410:250000])], axis=1)
+    sp2 = pt.ShardedStreamProcessor.resume(
+        stream_cfg(), single_device_mesh(), 2, sp.state_bytes(),
+        **STREAM_ROUTES["cat"][0])
+    got = np.concatenate([part1, stream(sp2, x[:, 250000:], [191000])], 1)
+    np.testing.assert_array_equal(full, got)
+
+
+def test_stream_set_gains_replays_without_recapture(cuda):
+    """set_gains between two steps of the dynamic cat route: the captured
+    graphs are the same objects, nothing is captured again, and the result
+    agrees with the same stream on a CPU copy (> 110 dB)."""
+    x = make_x(2, 10 * FS, seed=33)
+    out = {}
+    for device in (None, "cpu"):
+        sp = sharded(device, "dynamic cat")
+        part1 = sp.process(x[:, :200000])
+        graphs = sp._runner.graphs
+        sp.set_gains(DYN_GAINS[1])
+        part2 = stream(sp, x[:, 200000:], [241000])
+        assert sp._runner.graphs is graphs
+        assert sp.captures == (1 if device is None else 0)
+        out[device] = (part1.shape[1], np.concatenate([part1, part2], 1))
+    assert out[None][0] == out["cpu"][0] == 1024 * 160
+    assert min(snr_db(out["cpu"][1][c], out[None][1][c])
+               for c in range(2)) > 110
+
+
+def test_stream_processor_on_card_matches_cpu(cuda):
+    """StreamProcessor in 100 ms chunks: the frames kernel and K9 launch on
+    every chunk; the card agrees with the CPU (> 110 dB)."""
+    x = make_x(1, 5 * FS, seed=34)[0]
+    chunks = [FS // 10] * 50
+    reset_launch_counts()
+    z = stream(pt.StreamProcessor(stream_cfg(), FS), x, chunks)
+    counts = launch_counts()
+    assert counts["fir_frames_kernel"] >= 49 and counts["eq_finish"] >= 49
+    want = stream(pt.StreamProcessor(stream_cfg(), FS, device="cpu"), x,
+                  chunks)
+    assert z.shape == want.shape and snr_db(want, z) > 110
