@@ -8,7 +8,8 @@ Drives the port (dsp_audio_project_tpu_torch) at its real size — 44.1 ->
 48 kHz SRC (L/M = 160/147) + the 5-band EQ + |rfft| spectra of x, y and z
 on the cat, frames and explicit-kernel (fir_path = iir_path = 'pallas')
 paths, the dynamic-gain cat and frames paths, the streams (one signal in
-100 ms chunks; eight channels in super-steps on each route), the analysis
+100 ms chunks; eight channels in super-steps on each route), the sharded
+chain and stream on virtual meshes of several shards on the card, the analysis
 ops (STFT, spectrogram, long-window spectra) and the experimental
 kernels' entry points, 60 s signals, batch 8 — through the entry points a
 user calls, and checks it.
@@ -93,7 +94,20 @@ Phases, one or more lines each:
      no re-capture; K1 (num_frames = FL, pad_left = 0), the frames kernel
      (a step's and a 100 ms chunk's span) and K9 (a step's (C, K_loc, G,
      U)) vs plain (> 120 dB), folded into the record's max_abs_err;
- 15. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs;
+ 15. [sharded] sharding (parallel/): ``run_sharded`` on the routes plain
+     (fused=False), fused and cat over the virtual meshes 1x1, 1x2, 1x4,
+     1x8, 2x4 and 8x1 (every shard on the one card), each run counted (the
+     frames kernel and K9; cat: K1 and K9), z (and y) >= 60 dB against the
+     oracle outputs of [slice] and >= 110 dB against the route at 1x1, the
+     cat route at 1x1 >= 110 dB against [slice]'s ``forward_cat`` z; K1 and
+     the frames kernel at a shard's shapes (an interior 1x8 shard's
+     halo-extended input, num_frames = frames_local, pad_left 0; the 1x1
+     shard, pad_left = -lo) vs plain (> 120 dB), folded into the record's
+     max_abs_err; ``ShardedStreamProcessor`` at C = 8 on 1x4 and 2x4 (cat
+     FL 1024, fused frames FL 512, dynamic cat), each counted, one capture
+     covering every shard, >= 110 dB against the one-shot z, the eager step
+     and a mid-stream checkpoint resumed bit for bit;
+ 16. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs;
      the plain E2 versions, an 8192-step host loop, median of 2 after 2):
      the chains and analysis paths per call (per call, and per call of 20
      back-to-back calls; the host's own time per call), the cat chain with
@@ -109,7 +123,10 @@ Phases, one or more lines each:
      process() call and one step's input a call, the host ms per step by
      part, the device ms per step (a graph replay), the bytes up and down
      per step, the pinned copy rates of the step's size and the step's
-     bound max(device, up / H2D, down / D2H).
+     bound max(device, up / H2D, down / D2H); for sharding, ``run_sharded``
+     cat per call at 1x1 and 1x8 beside ``forward_cat`` (ms, host ms, and
+     device ms by the profiler) with the frames each plan pads to, and one
+     replayed cat stream step at 1x4 against 1x1 at FL 2048.
      ``--profile`` adds device time by kernel (torch.profiler) for each
      chain and analysis path, the dynamic chains and the device builder,
      one eager stream step (cat, FL 8192), and for E6 and E7.
@@ -122,8 +139,8 @@ record
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"},
 ...]}: ``launches`` sums the kernel's launches over the main-path runs of
 [slice], [frames], [analysis], [explicit], [dynamic] (its eager runs),
-[stream] (a) and (b) (a replayed step launches through the graph and is
-counted at its capture and warm-up) and
+[stream] (a) and (b), [sharded] (a replayed step launches through the
+graph and is counted at its capture and warm-up) and
 the entry points' own runs in [k3] (serving shape), [e7] and [e6] (for K7
 and K8, calls of the
 two-pass launcher, each of which starts both passes, as the JAX K8's two
@@ -745,14 +762,15 @@ def oracle_outputs(pipe, xs: np.ndarray) -> list:
     return out
 
 
-def gate(tag: str, want: list, z, y, mags) -> None:
-    """z (and y when given) and the three spectra >= 60 dB vs the oracle."""
+def gate(tag: str, want: list, z, y, mags) -> float:
+    """z (and y when given) and the three spectra (when given) >= 60 dB vs
+    the oracle; returns the worst."""
     from dsp_audio_project_tpu_torch import oracle
 
     worst = {"z": math.inf, "y": math.inf, "spectra": math.inf}
     z = z.cpu().numpy()
     y = None if y is None else y.cpu().numpy()
-    mags = [m.cpu().numpy() for m in mags]
+    mags = [] if mags is None else [m.cpu().numpy() for m in mags]
     for i, (y_want, z_want, spec) in enumerate(want):
         worst["z"] = min(worst["z"], oracle.snr_db(z_want, z[i]))
         if y is not None:
@@ -762,11 +780,14 @@ def gate(tag: str, want: list, z, y, mags) -> None:
                                    oracle.snr_db(s_want, m[i]))
     if y is None:
         del worst["y"]
+    if not mags:
+        del worst["spectra"]
     log(f"[{tag}] vs oracle, min snr over {len(want)} signals: "
         + ", ".join(f"{k} {v:.1f} dB" for k, v in worst.items())
         + " (gate 60)")
     if not all(v >= 60.0 for v in worst.values()):
         raise RuntimeError(f"[{tag}] output below the 60 dB oracle gate")
+    return min(worst.values())
 
 
 def run_counted(fn):
@@ -781,12 +802,13 @@ def run_counted(fn):
     return out, launch_counts()
 
 
-def require(tag: str, counts: dict, names) -> None:
+def require(tag: str, counts: dict, names, at_least: int = 1) -> None:
+    """Fail unless each kernel of ``names`` launched ``at_least`` times."""
     log(f"[{tag}] launches: {counts}")
-    missing = [n for n in names if counts[n] < 1]
+    missing = [n for n in names if counts[n] < at_least]
     if missing:
-        raise RuntimeError(f"[{tag}] kernels of the path did not launch: "
-                           f"{missing}")
+        raise RuntimeError(f"[{tag}] kernels of the path launched fewer "
+                           f"than {at_least} times: {missing}")
 
 
 def phase_slice(pipe, x: torch.Tensor, want: list):
@@ -1491,21 +1513,22 @@ def stream_through(sp, x: np.ndarray, chunks, lat=None,
     return np.concatenate(outs, axis=-1)
 
 
-def stream_gate(what: str, want: torch.Tensor, z: np.ndarray) -> float:
+def stream_gate(what: str, want: torch.Tensor, z: np.ndarray,
+                tag: str = "stream") -> float:
     """z >= STREAM_DB against the one-shot z, per row; returns the max
     abs error."""
     got = torch.as_tensor(z)
     want = want.cpu()
     if got.shape != want.shape or not bool(torch.isfinite(got).all()):
-        raise RuntimeError(f"[stream] {what}: z {tuple(got.shape)} vs "
+        raise RuntimeError(f"[{tag}] {what}: z {tuple(got.shape)} vs "
                            f"{tuple(want.shape)} or non-finite")
     worst = min(snr_db(want[i], got[i]) for i in range(want.shape[0]))
     err = float((got - want).abs().max())
-    log(f"[stream] {what}: min snr vs the one-shot z over {want.shape[0]} "
+    log(f"[{tag}] {what}: min snr vs the one-shot z over {want.shape[0]} "
         f"row(s) {worst:.1f} dB (gate {STREAM_DB:.0f}), max abs err "
         f"{err:.3e}")
     if not worst >= STREAM_DB:
-        raise RuntimeError(f"[stream] {what} below the invariance gate")
+        raise RuntimeError(f"[{tag}] {what} below the invariance gate")
     return err
 
 
@@ -1629,7 +1652,7 @@ def phase_stream_kernels(cfg, xs: np.ndarray) -> dict:
         polyphase_fir_class_rect_cat,
     )
     from dsp_audio_project_tpu_torch.ops import eq as teq
-    from dsp_audio_project_tpu_torch.parallel import single_device_mesh
+    from dsp_audio_project_tpu_torch.parallel import carry, single_device_mesh
 
     mesh = single_device_mesh()
     errs = {}
@@ -1649,9 +1672,9 @@ def phase_stream_kernels(cfg, xs: np.ndarray) -> dict:
     K, U, d = sp._K_loc, sp._U, sp._d
     s_in, e = teq._group_states(inj.reshape(BATCH, K, -1, d),
                                 t["group_toeplitz"])
-    sigma, _ = sp._cross_shard(
-        teq._carry_states(e, t["state_corr"], t.get("carry_w")), e,
-        torch.zeros(BATCH, d, device=DEVICE))
+    sigma_local, e_shard = carry.shard_end(e, t)
+    sigma = carry.cross_shard(sigma_local, e_shard[None],
+                              torch.zeros(BATCH, d, device=DEVICE), 0, t)
     st = teq._entry_states(s_in, sigma, t["group_pows"])
     y0g = y0.reshape(BATCH, K, -1, U)
     errs["k9"] = compare("stream", f"K9 at a step's {tuple(y0g.shape)}",
@@ -1742,7 +1765,7 @@ def time_stream(cfg, pipe, x: torch.Tensor, lat_a: list) -> dict:
                 wall / steps - sum(parts[feed].values()))
             if feed != "a step a call":
                 del sp, runner
-                gc.collect()       # the step's bound method closes a cycle
+                gc.collect()       # host_split's wrappers close a cycle
         del rates["warm-up"], parts["warm-up"]
         up = 4 * BATCH * (step_in + sp._hr)
         down = 4 * BATCH * fl * sp._P
@@ -1769,6 +1792,238 @@ def time_stream(cfg, pipe, x: torch.Tensor, lat_a: list) -> dict:
                 sp._step, runner.x_dev[0], runner.sigma.clone())
         del sp, runner
     return profiles
+
+
+# ---- sharding (parallel/) ---------------------------------------------------
+
+# Virtual meshes: every shard on the one card (the list repeats cuda:0).
+# They run the real halo exchange, gather and carry algebra; they measure
+# the sharded code's cost on one card, not scaling.
+SHARD_MESHES = ((1, 1), (1, 2), (1, 4), (1, 8), (2, 4), (8, 1))
+SHARD_ROUTES = (
+    ("plain", dict(fused=False), ("fir_frames_kernel", "eq_finish")),
+    ("fused", dict(fused=True), ("fir_frames_kernel", "eq_finish")),
+    ("cat", dict(cat=True), ("polyphase_fir_class_rect_cat", "eq_finish")),
+)
+SHARD_STREAM_MESHES = ((1, 4), (2, 4))
+STEP_CALLS_AT_CAPTURE = 4
+# cat (FL 1024), fused frames (FL 512), dynamic cat (FL 1024)
+SHARD_STREAM_ROUTES = (STREAM_ROUTES[2], STREAM_ROUTES[1], STREAM_ROUTES[4])
+
+
+def virtual_mesh(mc: int, mb: int):
+    import dsp_audio_project_tpu_torch as pt
+
+    return pt.build_mesh(pt.MeshConfig(channel_devices=mc, block_devices=mb),
+                         devices=[DEVICE] * (mc * mb))
+
+
+def phase_sharded(cfg, x: torch.Tensor, xs: np.ndarray, want: list,
+                  z_one: torch.Tensor):
+    """[sharded]: ``run_sharded`` on each route (plain, fused, cat) and
+    virtual mesh, each run counted, z (and y) >= 60 dB against the oracle
+    and >= 110 dB against the route at 1x1, the cat route at 1x1 >= 110 dB
+    against [slice]'s ``forward_cat`` z; K1 and the frames kernel at a
+    shard's shapes against their plain versions; ``ShardedStreamProcessor``
+    at C = 8 on 1x4 and 2x4 (cat, fused frames, dynamic cat): counted, one
+    capture, >= 110 dB against the one-shot z, the eager step and a
+    resumed checkpoint bit for bit.  Returns (counts, {tag: max abs
+    err})."""
+    import dsp_audio_project_tpu_torch as pt
+
+    n_out = cfg.src.output_length(x.shape[-1])
+    total = None
+    for route, kw, needed in SHARD_ROUTES:
+        base = None
+        for mc, mb in SHARD_MESHES:
+            mesh = virtual_mesh(mc, mb)
+            (z, y, fs_out, sp), counts = run_counted(
+                lambda: pt.run_sharded(x, FS, cfg, mesh, **kw))
+            tag = f"sharded {route} {mc}x{mb}"
+            # Each shard launches each kernel of its route once.
+            require(tag, counts, needed, at_least=mc * mb)
+            total = add_counts(total, counts)
+            if (z.shape != (BATCH, n_out) or fs_out != 48000
+                    or not bool(torch.isfinite(z).all())):
+                raise RuntimeError(f"[{tag}] z {tuple(z.shape)}, fs_out "
+                                   f"{fs_out} or non-finite")
+            gate(tag, want, z, y, None)
+            if base is None:
+                base = z
+            inv = min(snr_db(base[i], z[i]) for i in range(BATCH))
+            log(f"[sharded] {route} {mc}x{mb}: {sp.frames_local} frames a "
+                f"shard ({sp.frames_local * mb} in all), halo "
+                f"({sp.halo_left}, {sp.halo_right}); z vs {route} 1x1 min "
+                f"{inv:.1f} dB (gate 110)")
+            if not inv >= 110.0:
+                raise RuntimeError(f"[{tag}] below the invariance gate")
+            if route == "cat" and (mc, mb) == (1, 1):
+                s = min(snr_db(z_one[i], z[i]) for i in range(BATCH))
+                log(f"[sharded] cat 1x1 vs forward_cat's z: min {s:.1f} dB "
+                    "(gate 110)")
+                if not s >= 110.0:
+                    raise RuntimeError("[sharded] cat 1x1 differs from "
+                                       "forward_cat")
+        del base, z, y
+    errs = sharded_kernels(cfg, x)
+
+    n = xs.shape[-1]
+    chunks = stream_chunks(n, (1, 4409, 66150), size=FS)
+    half = len(chunks) // 2
+    cut = sum(chunks[:half])
+    for mc, mb in SHARD_STREAM_MESHES:
+        mesh = virtual_mesh(mc, mb)
+        for name, kw, needed in SHARD_STREAM_ROUTES:
+            sp = pt.ShardedStreamProcessor(cfg, FS, mesh, BATCH, **kw)
+            z, counts = run_counted(lambda: stream_through(sp, xs, chunks))
+            tag = f"sharded stream {name} {mc}x{mb}"
+            # The step runs each shard's kernels once a call, and its
+            # first call makes four: two warm-ups and the two slots'
+            # captures (replays launch through the graph, uncounted).
+            require(tag, counts, needed, at_least=STEP_CALLS_AT_CAPTURE
+                    * mc * mb)
+            total = add_counts(total, counts)
+            if sp.captures != 1:
+                raise RuntimeError(f"[{tag}] {sp.captures} captures")
+            stream_gate(f"stream {name} {mc}x{mb} (FL {sp._fl}, "
+                        f"{sp._frames_done // sp._F_sup} steps of "
+                        f"{sp._F_sup} frames, one capture)", z_one, z,
+                        tag="sharded")
+            eager = stream_through(pt.ShardedStreamProcessor(
+                cfg, FS, mesh, BATCH, graphs=False, **kw), xs, chunks)
+            sp1 = pt.ShardedStreamProcessor(cfg, FS, mesh, BATCH, **kw)
+            part1 = stream_through(sp1, xs[:, :cut], chunks[:half],
+                                   flush=False)
+            sp2 = pt.ShardedStreamProcessor.resume(
+                cfg, mesh, BATCH, sp1.state_bytes(), **kw)
+            resumed = np.concatenate(
+                [part1, stream_through(sp2, xs[:, cut:], chunks[half:])], 1)
+            if not (np.array_equal(eager, z) and np.array_equal(resumed, z)):
+                raise RuntimeError(f"[{tag}] the eager step or the resumed "
+                                   "stream differs from the replays")
+            log(f"[sharded] stream {name} {mc}x{mb}: the eager step and a "
+                f"checkpoint after {cut} samples resumed equal to the "
+                "replays bit for bit")
+    return total, errs
+
+
+def sharded_kernels(cfg, x: torch.Tensor) -> dict:
+    """K1 and the frames kernel at a shard's shapes against their plain
+    versions: the cat and fused routes' halo-extended input of an interior
+    shard at 1x8 (num_frames = frames_local, pad_left 0) and the 1x1 shard
+    (pad_left = -lo), built by the pipeline's own split and exchange."""
+    import torch.nn.functional as F
+
+    from dsp_audio_project_tpu_torch.kernels.fir_class import (
+        cat_operator, fir_cat_plain, fir_frames_kernel, fir_frames_plain,
+        plan_operator, polyphase_fir_class_rect_cat,
+    )
+    from dsp_audio_project_tpu_torch.ops.eq import (
+        eq_cat_weights, make_block_operators,
+    )
+    from dsp_audio_project_tpu_torch.ops.src import make_plan
+    from dsp_audio_project_tpu_torch.parallel import collectives, \
+        shard_signal
+    from dsp_audio_project_tpu_torch.parallel import pipeline as tpipe
+
+    errs = {"k1": 0.0, "k3": 0.0}
+    for mc, mb in ((1, 8), (1, 1)):
+        mesh = virtual_mesh(mc, mb)
+        _, sp = tpipe.build_sharded_pipeline(mesh, cfg, FS, x.shape[-1],
+                                             BATCH, cat=True)
+        plan = make_plan(cfg.src.L, cfg.src.M, cfg.src.taps_rule_factor)
+        ops = make_block_operators(cfg.eq.active_bands(48000), 48000,
+                                   cfg.eq.q, sp.iir_block, plan.P)
+        g2 = torch.as_tensor(cat_operator(plan.G, eq_cat_weights(ops)),
+                             device=DEVICE)
+        xp = F.pad(x, (0, sp.n_in_local * mb - x.shape[-1]))
+        axis = collectives.block_axis(mesh, 0)
+        shards = shard_signal(mesh, xp)
+        parts = tpipe._halo_extend([shards[(0, b)] for b in axis.blocks],
+                                   sp, axis)
+        x_ext = parts[min(1, mb - 1)].contiguous()
+        pad_left = -(plan.lo + sp.halo_left)
+        fl = sp.frames_local
+        y0, inj = polyphase_fir_class_rect_cat(
+            x_ext, plan, sp.n_out_local, None, num_frames=fl,
+            pad_left=pad_left, g2=g2)
+        y0_ref, inj_ref = fir_cat_plain(x_ext, g2, plan.P, plan.s, fl,
+                                        pad_left)
+        g = plan_operator(plan, DEVICE)
+        yf = fir_frames_kernel(x_ext, g, plan.s, fl, pad_left)
+        yf_ref = fir_frames_plain(x_ext, g, plan.s, fl, pad_left)
+        torch.cuda.synchronize()
+        what = (f"a {mc}x{mb} shard {tuple(x_ext.shape)}, {fl} frames, "
+                f"pad_left {pad_left}")
+        errs["k1"] = max(errs["k1"],
+                         compare("sharded", f"K1 y0 at {what}", y0, y0_ref),
+                         compare("sharded", "K1 inj", inj, inj_ref))
+        errs["k3"] = max(errs["k3"], compare(
+            "sharded", f"frames kernel at {what}", yf, yf_ref))
+    return errs
+
+
+def device_ms(fn, calls: int = 3) -> float:
+    """Device kernel time per call of fn (torch.profiler over ``calls``
+    calls after one warm-up call): the device activity's own time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total",
+                    getattr(evt, "self_cuda_time_total", 0.0))
+        if t > 0 and evt.self_cpu_time_total == 0:
+            us += t
+    return us / calls / 1e3
+
+
+def time_sharded(cfg, pipe, x: torch.Tensor, xs: np.ndarray) -> dict:
+    """[time] sharded: ``run_sharded`` cat per call at 1x1 and at 1x8
+    virtual beside ``forward_cat`` (CUDA events, host ms, profiler device
+    ms), and one replayed cat stream step at 1x4 against 1x1 at the same
+    FL.  Returns {name: run_sharded call} for --profile."""
+    import dsp_audio_project_tpu_torch as pt
+
+    log("[time] sharded: virtual meshes on one card measure the sharded "
+        "code's cost there, not scaling over cards")
+    paths = {"forward_cat": functools.partial(pipe.forward_cat, x, FS)}
+    for mc, mb in ((1, 1), (1, 8)):
+        mesh = virtual_mesh(mc, mb)
+        sp = pt.run_sharded(x, FS, cfg, mesh, cat=True)[3]
+        log(f"[time] sharded cat {mc}x{mb} plan: {sp.frames_local} frames a "
+            f"shard, {sp.frames_local * mb} frames in all")
+        paths[f"run_sharded cat {mc}x{mb}"] = functools.partial(
+            pt.run_sharded, x, FS, cfg, mesh, cat=True)
+    for name, fn in paths.items():
+        ms = time_ms(fn)
+        host = host_ms(fn)
+        dev = device_ms(fn)
+        log(f"[time] sharded {name}, batch {BATCH} x {SECONDS:.0f} s: "
+            f"{ms:.4f} ms per call (median of {REPS}), host {host[0]:.4f} "
+            f"ms (min {host[1]:.4f}, max {host[2]:.4f}), device "
+            f"{dev:.4f} ms (profiler, 3 calls)")
+    fl = 2048
+    for mc, mb in ((1, 1), (1, 4)):
+        sp = pt.ShardedStreamProcessor(cfg, FS, virtual_mesh(mc, mb), BATCH,
+                                       frames_per_shard=fl)
+        sp.process(xs[:, : sp._F_sup * sp._s + sp._W])      # the capture
+        replay = sp._runner.graphs[0].replay
+        dev = time_ms(replay, reps=10, warmup=3)
+        host = host_ms(replay, reps=10)
+        log(f"[time] sharded stream cat {mc}x{mb}, FL {fl} ({sp._F_sup} "
+            f"frames a step, {BATCH} channels): one replayed step "
+            f"{dev:.4f} ms (CUDA events, median of 10) -> "
+            f"{dev / sp._F_sup * 1e3:.4f} us a frame; host {host[0]:.4f} "
+            "ms per replay")
+        del sp
+    return {k: v for k, v in paths.items() if k.startswith("run_sharded")}
 
 
 def host_split(sp) -> dict:
@@ -1926,12 +2181,16 @@ def main() -> None:
     stream_one_counts, stream_lat = phase_stream_one(
         cfg, xs[0], pipe(x[:1], FS).output[0])
     stream_counts = phase_stream_sharded(cfg, xs, z_one)
+    sharded_counts, sharded_errs = phase_sharded(cfg, x, xs, want, z_one)
     del z_one
+    for tag, err in sharded_errs.items():
+        k = {"k1": k1, "k3": k3}[tag]
+        k["max_abs_err"] = max(k["max_abs_err"], err)
     for tag, err in phase_stream_kernels(cfg, xs).items():
         k = {"k1": k1, "k3": k3, "k9": k9}[tag]
         k["max_abs_err"] = max(k["max_abs_err"], err)
     runs += [e7_counts, e6_counts, k3_counts, dyn_counts, stream_one_counts,
-             stream_counts]
+             stream_counts, sharded_counts]
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
 
     chains = {
@@ -1962,6 +2221,7 @@ def main() -> None:
         f"{finish['torch']} ms per call")
     dyn_chains = time_dynamic(pipe, x, dyn)
     stream_steps = time_stream(cfg, pipe, x, stream_lat)
+    sharded_paths = time_sharded(cfg, pipe, x, xs)
 
     kernels = {"k1": k1, "k2": k2, "k3": k3, "k9": k9, "k2c": k2c,
                "k7": k7, "k8": k8, "e2a": e2a, "e2b": e2b, "e7": e7, "e6": e6,
@@ -1992,7 +2252,7 @@ def main() -> None:
 
     if profile_too:
         phase_profile(stream_steps, shape=f"{BATCH} channels x one step")
-        phase_profile({**chains, **dyn_chains,
+        phase_profile({**chains, **dyn_chains, **sharded_paths,
                        "E6 rfft_butterfly at the STFT's (41344, 2048) frames":
                            e6["kern"],
                        "E7 equalize_seq_flat at 8 x 2,949,120": e7["kern"]})

@@ -7,8 +7,10 @@ NVIDIA Hopper GPU, with hand-written CUDA kernels for their hot loops
 with the frames and flat forwards (slice 2), the STFT and long-window
 spectra (slice 3), the explicit-kernel routes (slice 4), dynamic gains
 (slice 5: ``AudioPipeline.forward_{frames,cat}_dynamic*``) and streaming
-(slice 6: ``StreamProcessor``, ``ShardedStreamProcessor`` on a 1x1 mesh,
-``StreamState``, ``equalize_stream``).  The JAX
+(slice 6: ``StreamProcessor``, ``ShardedStreamProcessor``,
+``StreamState``, ``equalize_stream``) and sharding (slice 7: the
+(channel, block) mesh, ``run_sharded``, the multi-process mesh of
+``parallel/distributed.py``).  The JAX
 package beside it is the reference the port is tested against; this
 package imports neither jax nor it.
 
@@ -18,7 +20,10 @@ Public entry points:
     equalize_stream                   EQ of a chunk with its carry state
     StreamProcessor                   chunked SRC->EQ of one signal
     ShardedStreamProcessor            chunked SRC->EQ of C channels in
-                                      super-steps on a mesh (1x1 for now)
+                                      super-steps on a mesh
+    build_mesh, single_device_mesh    (channel, block) device meshes
+    run_sharded,
+    build_sharded_pipeline, ShardPlan the chain sharded over a mesh
     StreamState                       a stream's carry, as bytes
     equalize_dynamic[_frames[_ops]],
     build_dynamic_operators           EQ with the gains as an input
@@ -66,6 +71,13 @@ from .ops.spectrum import (  # noqa: E402
     stft_planes,
 )
 from .ops.src import resample  # noqa: E402
+from .parallel import (  # noqa: E402
+    ShardPlan,
+    build_mesh,
+    build_sharded_pipeline,
+    run_sharded,
+    single_device_mesh,
+)
 from .streaming import (  # noqa: E402
     ShardedStreamProcessor,
     StreamProcessor,
@@ -89,12 +101,15 @@ __all__ = [
     "PipelineConfig",
     "PipelineOutputs",
     "SRCConfig",
+    "ShardPlan",
     "ShardedStreamProcessor",
     "SpectrumConfig",
     "StreamProcessor",
     "StreamState",
     "angular_spectrum",
     "build_dynamic_operators",
+    "build_mesh",
+    "build_sharded_pipeline",
     "design_tables",
     "equalize",
     "equalize_dynamic",
@@ -104,6 +119,8 @@ __all__ = [
     "magnitude_spectrum",
     "process",
     "resample",
+    "run_sharded",
+    "single_device_mesh",
     "spectrogram",
     "spectrum_db",
     "stft",

@@ -2,8 +2,9 @@
 
 A copy of the parts of ``dsp_audio_project_tpu/config.py`` that the port
 reads: the SRC, EQ and spectrum dataclasses (the reference's hardcoded
-knobs, defaults unchanged), ``MeshConfig`` (the streams' device mesh,
-parallel/mesh.py) and the path and precision flags of ``KernelConfig``.
+knobs, defaults unchanged), ``MeshConfig`` (the device mesh of the
+sharded chain and stream, parallel/mesh.py) and the path and precision
+flags of ``KernelConfig``.
 Pure Python, so the GPU host needs no JAX to import it;
 tests/test_torch_design.py holds it equal to the original.
 """
@@ -144,8 +145,8 @@ class MeshConfig:
 
     Axes: ``channel`` shards independent audio channels, ``block`` shards the
     time axis into contiguous blocks (overlap-save halos for the FIR, state
-    carries for the IIR).  The port builds 1x1 meshes only
-    (parallel/mesh.py).
+    carries for the IIR); ``parallel/mesh.build_mesh`` lays
+    ``channel_devices x block_devices`` shards over a device list.
     """
 
     channel_axis: str = "channel"

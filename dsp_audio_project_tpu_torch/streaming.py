@@ -17,12 +17,14 @@ each chunk's span (``ops/src.shifted_frames_matmul``) and
 ``ShardedStreamProcessor`` (C channels, fixed super-steps) runs each step
 as K1 or the frames kernel, the EQ's state algebra and K9, with the carry
 kept on the device; on a card each step is one replayed CUDA graph.  It
-runs on a 1x1 mesh (parallel/mesh.py); the multi-device half (the halo's
-ppermute, the carries' all_gather) is ROADMAP slice 7.
+runs on any (channel, block) mesh held in this process (parallel/mesh.py):
+the halo between block shards and the all-gather of their end states go
+through ``parallel/collectives.py``.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import io
 import json
 from typing import Optional
@@ -52,6 +54,7 @@ from .ops.src import (
     resample,
     shifted_frames_matmul,
 )
+from .parallel import carry, collectives
 from .parallel.mesh import BLOCK_AXIS, CHANNEL_AXIS
 from .utils.device import default_device
 
@@ -295,11 +298,15 @@ class StreamProcessor:
 
 
 class _StepRunner:
-    """Runs a stream's super-steps on one device.
+    """Runs a stream's super-steps from one device (the step itself moves
+    shards to the other devices of its mesh).
 
-    ``step(x, sigma) -> (z, sigma_out)`` is the device program; the runner
-    keeps the carry ``sigma`` on the device (written in place after each
-    step) and owns the host staging.  On the CPU a step is a plain call on
+    ``step(x, sigma) -> (z, sigma_out)``, the device program, comes with
+    each ``run`` (the runner keeps no reference to its processor, so a
+    processor nobody holds is freed at once, graphs and all, never by the
+    cycle collector inside another stream's capture); the runner keeps the
+    carry ``sigma`` on the device (written in place after each step) and
+    owns the host staging.  On the CPU a step is a plain call on
     a fresh host array.  On a card: two device input slots, each with a
     pinned host buffer; step k uploads on a copy stream, runs on the
     current stream, and its z is copied on a second copy stream into a
@@ -313,9 +320,9 @@ class _StepRunner:
     counts the captures.
     """
 
-    def __init__(self, step, device: torch.device, x_shape, z_shape,
+    def __init__(self, device: torch.device, x_shape, z_shape,
                  sigma: torch.Tensor, graphs: bool):
-        self.step, self.device = step, device
+        self.device = device
         self.x_shape, self.z_shape = tuple(x_shape), tuple(z_shape)
         self.sigma = sigma
         self.cuda = device.type == "cuda"
@@ -334,8 +341,8 @@ class _StepRunner:
             self.z_pool: list = []
         self.slot = 0
 
-    def _body(self, slot: int) -> torch.Tensor:
-        z, sigma_out = self.step(self.x_dev[slot], self.sigma)
+    def _body(self, step, slot: int) -> torch.Tensor:
+        z, sigma_out = step(self.x_dev[slot], self.sigma)
         self.sigma.copy_(sigma_out)
         return z
 
@@ -348,11 +355,11 @@ class _StepRunner:
             ev.synchronize()
         return self.x_pin[self.slot].numpy()
 
-    def run(self, host: np.ndarray):
-        """Dispatch one step on ``host`` (from ``host_buffer``); returns a
+    def run(self, host: np.ndarray, step):
+        """Dispatch ``step`` on ``host`` (from ``host_buffer``); returns a
         pending record for ``fetch``."""
         if not self.cuda:
-            z, sigma_out = self.step(torch.from_numpy(host), self.sigma)
+            z, sigma_out = step(torch.from_numpy(host), self.sigma)
             self.sigma = sigma_out
             return z, None
         slot = self.slot
@@ -366,11 +373,11 @@ class _StepRunner:
         cur.wait_event(self.uploaded[slot])
         if self.use_graphs:
             if self.graphs is None:
-                self._capture(cur)
+                self._capture(cur, step)
             self.graphs[slot].replay()
             z = self.z_out[slot]
         else:
-            z = self._body(slot)
+            z = self._body(step, slot)
         computed = cur.record_event()
         zp = (self.z_pool.pop() if self.z_pool
               else torch.empty(self.z_shape, pin_memory=True))
@@ -382,19 +389,28 @@ class _StepRunner:
             self.fetched[slot] = self.d2h.record_event()
         return zp, self.fetched[slot]
 
-    def _capture(self, cur) -> None:
+    def _capture(self, cur, step) -> None:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):   # lazy inits; the carry untouched
             for _ in range(2):
-                self.step(self.x_dev[0], self.sigma.clone())
+                step(self.x_dev[0], self.sigma.clone())
         cur.wait_stream(side)
         self.graphs, self.z_out = [], []
-        for slot in range(2):
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self.z_out.append(self._body(slot))
-            self.graphs.append(graph)
+        # A garbage collection inside a capture may destroy graphs or pinned
+        # buffers that cyclic garbage holds, and that invalidates the
+        # capture; torch.cuda.graph collects just before it begins.
+        gc_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            for slot in range(2):
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    self.z_out.append(self._body(step, slot))
+                self.graphs.append(graph)
+        finally:
+            if gc_enabled:
+                gc.enable()
         self.captures += 1
 
     def fetch(self, pending, dest: np.ndarray) -> None:
@@ -409,7 +425,7 @@ class _StepRunner:
 
 
 class ShardedStreamProcessor:
-    """Chunked SRC->EQ over a (channel, block) device mesh, on one card.
+    """Chunked SRC->EQ over a (channel, block) device mesh.
 
     BASELINE config 5 (the long-form multichannel stream).  Input chunks of
     any size buffer on the host; whenever the stream covers a full
@@ -424,10 +440,20 @@ class ShardedStreamProcessor:
         the stream's incoming carry sigma_in, and the replicated outgoing
         carry), then the readout and clip as one K9 pass.
 
-    On a 1x1 mesh the block axis is degenerate: the halo is the stream
-    tail, uploaded in the same span, and the all_gather of the shard-end
-    states is the identity.  Meshes over several cards are ROADMAP
-    slice 7.
+    The step's span is cut into ``mesh_block`` shards of
+    ``frames_per_shard`` frames and the channels into ``mesh_channel`` rows.
+    Block shard b's last frames read W - s samples of shard b + 1, received
+    through ``collectives`` (the last shard takes the real stream tail,
+    uploaded with the span); each shard's end state goes to every shard of
+    its row by an all-gather, and ``parallel/carry.py`` (shared with
+    ``run_sharded``) gives shard b its incoming carry from ``weights[b]``
+    and ``pow_nb[b]``.  On a 1x1 mesh
+    the halo is the tail itself and the gather the shard's own state.  The
+    mesh is held in this process: a virtual mesh whose shards share one
+    device (``mesh.shared``) runs each step as one CUDA graph covering
+    every shard; on a mesh over several devices the steps run eagerly (a
+    graph over several devices is ROADMAP work), and a process-group mesh
+    (``distributed.multihost_mesh``) is refused.
 
     Routes, chosen as the JAX package chooses them:
 
@@ -472,10 +498,15 @@ class ShardedStreamProcessor:
         self.config = config
         self.fs = int(fs)
         self.fs_out = config.src.output_rate(self.fs)
+        if mesh.process is not None:
+            raise ValueError(
+                "ShardedStreamProcessor runs on a mesh held in one process "
+                "(build_mesh, single_device_mesh); a process-group mesh "
+                "runs run_sharded")
         self.mesh = mesh
         self._nb = mesh.shape[BLOCK_AXIS]
         self._mc = mesh.shape[CHANNEL_AXIS]
-        self.device = mesh.device       # raises beyond 1x1 (slice 7)
+        self.device = mesh.device_of(0, 0)   # where the span goes up
         self.channels = int(channels)
         self._c_pad = -(-self.channels // self._mc) * self._mc
         src = config.src
@@ -532,6 +563,10 @@ class ShardedStreamProcessor:
                 f"the EQ block's frame count {fpb}"
             )
         self._fl = frames_per_shard
+        if self._nb > 1 and self._hr > self._fl * self._s:
+            raise ValueError(
+                f"a shard of {self._fl * self._s} input samples is shorter "
+                f"than the filter halo {self._hr}: raise frames_per_shard")
         self._K_loc = self._fl // fpb
         self._F_sup = self._nb * self._fl
         self._cat = cat_ok and not self._dynamic and self._fl % 1024 == 0
@@ -589,6 +624,7 @@ class ShardedStreamProcessor:
         self._flushed = False
         self._graphs = bool(graphs)
         self._tab = self._build_tables()
+        self._tabs = {str(self.device): self._tab}   # per shard device
         self._runner: Optional[_StepRunner] = None   # built at the 1st step
 
     # -- tables ----------------------------------------------------------------
@@ -622,28 +658,11 @@ class ShardedStreamProcessor:
     def _static_tables(self) -> dict:
         """Float64 host tables rounded to float32 last, as the JAX
         package's step builds them (streaming.py:605-632)."""
-        ops, nb, K_loc, d = self._ops, self._nb, self._K_loc, self._d
-        A_shard = np.linalg.matrix_power(
-            ops.state_corr.astype(np.float64), K_loc)
-        powers = np.zeros((nb + 1, d, d))
-        acc = np.eye(d)
-        for k_i in range(nb + 1):
-            powers[k_i] = acc
-            acc = acc @ A_shard
-        weights = np.zeros((nb, nb, d, d), dtype=np.float32)
-        for dst in range(nb):
-            for srcd in range(dst):
-                weights[dst, srcd] = powers[dst - 1 - srcd]
-        w_out = np.stack([powers[nb - 1 - i] for i in range(nb)])
-        pk = np.zeros((K_loc, d, d))
-        acc = np.eye(d)
-        for k_i in range(K_loc):
-            pk[k_i] = acc
-            acc = acc @ ops.state_corr
+        ops, K_loc = self._ops, self._K_loc
         host = {
             "group_toeplitz": ops.group_toeplitz, "group_pows": ops.group_pows,
             "group_out": ops.group_out, "state_corr": ops.state_corr,
-            "pk": pk, "weights": weights, "w_out": w_out, "pow_nb": powers,
+            **carry.cross_shard_tables(ops.state_corr, self._nb, K_loc),
         }
         if K_loc <= eq_ops._CARRY_ALLPAIRS_MAX:
             host["carry_w"] = eq_ops._carry_weights(ops, K_loc)
@@ -700,8 +719,10 @@ class ShardedStreamProcessor:
                 "gains_db=... for dynamic mode"
             )
         self._gains = self._check_gains(gains_db)
-        for name, t in self._dyn_tables(self._gains).items():
-            self._tab[name].copy_(t)
+        new = self._dyn_tables(self._gains)
+        for tab in self._tabs.values():
+            for name, t in new.items():
+                tab[name].copy_(t)
 
     def _sync_sigma(self) -> None:
         if self._runner is not None:
@@ -754,36 +775,29 @@ class ShardedStreamProcessor:
         )
 
     # -- device step ---------------------------------------------------------
-    def _cross_shard(self, sigma_local, e, sigma_in):
-        """The JAX package's carry algebra (streaming.py:710-740): the true
-        per-block states and the outgoing carry.  The shard-end states are
-        gathered over the block axis, which on a 1x1 mesh is this shard's
-        own; at nb = 1, weights = 0, pow_nb[0] = I and w_out = [I], so
-        sigma0 = sigma_in and sigma_out = e_shard + A_shard sigma_in."""
-        t, nb, my = self._tab, self._nb, 0
-        e_shard = (sigma_local[..., -1, :] @ t["state_corr"].T
-                   + e[..., -1, :])
-        gathered = e_shard[None]                   # (nb, C, d)
-        sigma0 = (torch.einsum("sij,s...j->...i", t["weights"][my], gathered)
-                  + sigma_in @ t["pow_nb"][my].T)
-        sigma = sigma_local + torch.einsum("kij,...j->...ki", t["pk"], sigma0)
-        sigma_out = (torch.einsum("sij,s...j->...i", t["w_out"], gathered)
-                     + sigma_in @ t["pow_nb"][nb].T)
-        return sigma, sigma_out
+    def _tables_on(self, dev) -> dict:
+        """The step's tables on a shard's device (copies of ``_tab``, kept
+        in step by ``set_gains``)."""
+        key = str(dev)
+        if key not in self._tabs:
+            self._tabs[key] = {k: v.to(dev) for k, v in self._tab.items()}
+        return self._tabs[key]
 
-    def _step(self, x: torch.Tensor, sigma_in: torch.Tensor):
-        """One super-step: x (C, span + halo) -> (z (C, fl*P), sigma_out).
+    def _carry_out(self, gathered, sigma_in, t):
+        """The outgoing carry, the same on every block shard of a row: at
+        nb = 1, e_shard + A_shard sigma_in."""
+        return (torch.einsum("sij,s...j->...i", t["w_out"], gathered)
+                + sigma_in @ t["pow_nb"][self._nb].T)
 
-        Pure (the carry comes in and goes out), so a warm-up call leaves
-        the stream as it was and the eager step can be held against a
-        replay of the captured one.
-        """
-        t, plan = self._tab, self._plan
+    def _shard_parts(self, x: torch.Tensor, t: dict):
+        """One shard's SRC and the EQ's zero-state passes: x (C, fl*s + hr)
+        -> (y0, s_in, sigma_local, e_shard), or (z, None) with no active
+        EQ.  x index 0 is frame 0's window start: pad_left = 0."""
+        plan = self._plan
         C, fl, P, K, U, d = (x.shape[0], self._fl, self._P, self._K_loc,
                              self._U, self._d)
         G = (self._fpb * P) // U
         if self._cat or self._cat_dyn:
-            # x index 0 is frame 0's window start: pad_left = 0.
             y0, inj = polyphase_fir_class_rect_cat(
                 x, plan, fl * P, None, num_frames=fl, pad_left=0,
                 g2=t["g2"])
@@ -801,22 +815,72 @@ class ShardedStreamProcessor:
             y = y.reshape(C, fl * P)
             if not self._eq_active:
                 z = y if self.config.eq.bypass else torch.clamp(y, -1.0, 1.0)
-                return z, sigma_in
+                return z, None
             y0, s_in, e = eq_ops._grouped_parts(y.reshape(C, K, G, U), t)
-        sigma_local = eq_ops._carry_states(e, t["state_corr"],
-                                           t.get("carry_w"))
-        sigma, sigma_out = self._cross_shard(sigma_local, e, sigma_in)
-        z = eq_ops._grouped_finish(y0, s_in, sigma, t)
-        return z.reshape(C, fl * P), sigma_out
+        return (y0, s_in) + carry.shard_end(e, t)
+
+    def _halo_parts(self, xr: torch.Tensor, axis) -> list:
+        """A channel row's span cut into its block shards, each with its
+        right halo: the first W - s samples of the next shard, received
+        through the block axis; the last shard's is the stream tail (not
+        the shift's zero edge).  With one block shard the span is the
+        shard, its tail already joined."""
+        devs = axis.devices
+        if self._nb == 1:
+            return [xr.to(devs[0])]
+        L, hr = self._fl * self._s, self._hr
+        heads = [xr[:, b * L:(b + 1) * L].to(dev)
+                 for b, dev in enumerate(devs)]
+        if not hr:
+            return [h.contiguous() for h in heads]
+        right = axis.shift([h[:, :hr] for h in heads], +1)
+        right[-1] = xr[:, self._nb * L:].to(devs[-1])
+        return [torch.cat([h, r], -1) for h, r in zip(heads, right)]
+
+    def _row_step(self, xr: torch.Tensor, sigma_in: torch.Tensor, c: int):
+        """Channel row c of a super-step: (z (rows, nb*fl*P), sigma_out),
+        both on xr's device."""
+        axis = collectives.block_axis(self.mesh, c)
+        tabs = [self._tables_on(dev) for dev in axis.devices]
+        staged = [self._shard_parts(p, t)
+                  for p, t in zip(self._halo_parts(xr, axis), tabs)]
+        if not self._eq_active:
+            zs, sigma_out = [z for z, _ in staged], sigma_in
+        else:
+            zs, gathered = carry.finish_row(axis, staged, tabs, sigma_in)
+            sigma_out = self._carry_out(gathered[0], sigma_in.to(
+                axis.devices[0]), tabs[0]).to(xr.device)
+        zs = [z.reshape(z.shape[0], self._fl * self._P).to(xr.device)
+              for z in zs]
+        return (zs[0] if len(zs) == 1 else torch.cat(zs, -1)), sigma_out
+
+    def _step(self, x: torch.Tensor, sigma_in: torch.Tensor):
+        """One super-step: x (C_pad, nb*fl*s + hr) -> (z (C_pad, nb*fl*P),
+        sigma_out), each channel row of the mesh in turn.
+
+        Pure (the carry comes in and goes out), so a warm-up call leaves
+        the stream as it was and the eager step can be held against a
+        replay of the captured one.
+        """
+        mc = self._mc
+        if mc == 1:
+            return self._row_step(x, sigma_in, 0)
+        rows = x.shape[0] // mc
+        out = [self._row_step(x[c * rows:(c + 1) * rows],
+                              sigma_in[c * rows:(c + 1) * rows], c)
+               for c in range(mc)]
+        return (torch.cat([z for z, _ in out], 0),
+                torch.cat([s for _, s in out], 0))
 
     def _get_runner(self) -> _StepRunner:
         if self._runner is None:
             sigma = torch.zeros((self._c_pad, self._d), device=self.device)
             sigma[: self.channels] = torch.as_tensor(self._sigma)
             self._runner = _StepRunner(
-                self._step, self.device,
+                self.device,
                 (self._c_pad, self._F_sup * self._s + self._hr),
-                (self._c_pad, self._F_sup * self._P), sigma, self._graphs)
+                (self._c_pad, self._F_sup * self._P), sigma,
+                self._graphs and self.mesh.shared)
         return self._runner
 
     # -- processing ----------------------------------------------------------
@@ -945,7 +1009,7 @@ class ShardedStreamProcessor:
             arr[self.channels :] = 0.0
         else:
             arr[:] = 0.0
-        pending = runner.run(arr)
+        pending = runner.run(arr, self._step)
 
         src = self.config.src
         total_out = (

@@ -34,6 +34,11 @@ card vs the same processor on the CPU (> 110 dB), its kernels launched and
 its step captured once; the graph replay bit for bit against the eager
 step; resume bit for bit; ``set_gains`` with no re-capture (> 110 dB vs
 the CPU); ``StreamProcessor`` in 100 ms chunks vs the CPU (> 110 dB).
+Sharding: ``run_sharded`` (plain, fused, cat) on virtual 1x4 and 2x2
+meshes of cuda:0 vs the same mesh on the CPU and vs the card at 1x1 (>
+110 dB), a launch a shard; the sharded stream on those meshes: one
+capture covering every shard, the replays bit for bit against the eager
+step and a resumed checkpoint, > 110 dB against the CPU.
 """
 from __future__ import annotations
 
@@ -961,3 +966,98 @@ def test_stream_processor_on_card_matches_cpu(cuda):
     want = stream(pt.StreamProcessor(stream_cfg(), FS, device="cpu"), x,
                   chunks)
     assert z.shape == want.shape and snr_db(want, z) > 110
+
+
+# ---- sharding (parallel/): virtual meshes of several shards on cuda:0 ------
+
+SHARD_ROUTES = {
+    "plain": (dict(fused=False), ("fir_frames_kernel", "eq_finish")),
+    "fused": (dict(fused=True), ("fir_frames_kernel", "eq_finish")),
+    "cat": (dict(cat=True), ("polyphase_fir_class_rect_cat", "eq_finish")),
+}
+
+
+def card_mesh(mc, mb, device="cuda"):
+    return pt.build_mesh(pt.MeshConfig(channel_devices=mc, block_devices=mb),
+                         devices=[device] * (mc * mb))
+
+
+@pytest.mark.parametrize("mc,mb", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("route", list(SHARD_ROUTES))
+def test_run_sharded_on_card_matches_cpu(cuda, route, mc, mb):
+    """run_sharded on a virtual cuda:0 mesh vs the same mesh on the CPU
+    (plain versions): > 110 dB, the route's kernels launched; vs the card
+    at 1x1 > 110 dB."""
+    kw, needed = SHARD_ROUTES[route]
+    x = make_x(2, 5 * FS, seed=40)
+    cfg = stream_cfg()
+    reset_launch_counts()
+    z = pt.run_sharded(torch.as_tensor(x, device=cuda), FS, cfg,
+                       card_mesh(mc, mb), **kw)[0]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert all(counts[k] >= mc * mb for k in needed), counts
+    assert z.device.type == "cuda"
+    want = pt.run_sharded(x, FS, cfg, card_mesh(mc, mb, "cpu"), **kw)[0]
+    z1 = pt.run_sharded(torch.as_tensor(x, device=cuda), FS, cfg,
+                        card_mesh(1, 1), **kw)[0]
+    z, want, z1 = z.cpu().numpy(), want.numpy(), z1.cpu().numpy()
+    assert min(snr_db(want[c], z[c]) for c in range(2)) > 110
+    assert min(snr_db(z1[c], z[c]) for c in range(2)) > 110
+
+
+@pytest.mark.parametrize("mc,mb", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("route", ["fused frames", "cat", "dynamic cat"])
+def test_sharded_stream_on_virtual_card_mesh(cuda, route, mc, mb):
+    """The stream on a virtual cuda:0 mesh: one graph a slot covering every
+    shard, captured once, equal to the eager step bit for bit and > 110 dB
+    against the CPU; a checkpoint resumes bit for bit."""
+    x = make_x(2, 20 * FS, seed=41)
+    chunks = [1, 4409, 300000, 66150, 400000, 111440]      # 882,000 = 20 s
+    kw = STREAM_ROUTES[route][0]
+
+    def proc(device, **extra):
+        return pt.ShardedStreamProcessor(stream_cfg(), FS,
+                                         card_mesh(mc, mb, device), 2, **kw,
+                                         **extra)
+
+    sp = proc("cuda")
+    replayed = stream(sp, x, chunks)
+    assert sp.captures == 1 and sp._frames_done // sp._F_sup >= 2
+    eager = stream(proc("cuda", graphs=False), x, chunks)
+    np.testing.assert_array_equal(replayed, eager)
+    want = stream(proc("cpu"), x, chunks)
+    assert min(snr_db(want[c], replayed[c]) for c in range(2)) > 110
+    sp = proc("cuda")
+    part1 = sp.process(x[:, :700000])
+    assert sp._frames_done >= sp._F_sup
+    sp2 = pt.ShardedStreamProcessor.resume(
+        stream_cfg(), card_mesh(mc, mb), 2, sp.state_bytes(), **kw)
+    got = np.concatenate([part1, stream(sp2, x[:, 700000:], [182000])], 1)
+    np.testing.assert_array_equal(replayed, got)
+
+
+def test_stream_capture_after_a_dropped_processor(cuda):
+    """A processor with captured graphs is freed as soon as it is dropped
+    (no reference cycle), so its graphs are never destroyed inside a later
+    processor's capture, which would invalidate it; the next processor
+    captures and matches."""
+    import gc
+    import weakref
+
+    x = make_x(2, 10 * FS, seed=42)
+    want = stream(sharded(None, "fused frames"), x, STREAM_CHUNKS)
+    for _ in range(3):
+        old = sharded(None, "fused frames")
+        old.process(x[:, :200000])
+        assert old.captures == 1
+        ref = weakref.ref(old)
+        gc.disable()
+        try:
+            del old
+            assert ref() is None
+        finally:
+            gc.enable()
+        sp = sharded(None, "fused frames")
+        assert stream(sp, x, STREAM_CHUNKS).tobytes() == want.tobytes()
+        assert sp.captures == 1

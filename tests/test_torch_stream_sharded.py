@@ -1,19 +1,31 @@
-"""The port's one-card ``ShardedStreamProcessor`` against the JAX package's
-on a 1x1 JAX mesh, on the CPU (plain kernel versions), on the same seeded
-inputs.
+"""The port's ``ShardedStreamProcessor`` against the JAX package's, on the
+CPU (plain kernel versions), on the same seeded inputs.
 
-The JAX package runs its flat route here (its fused rule wants a TPU or
-interpret mode); the port's flat, fused-frames and cat routes are each held
-against it at >= 110 dB, the JAX package's own gate for its routes against
-one another and against the one-shot chain.  Checkpoint and resume: the
-port's resume bit for bit, a blob from either package resuming in the other
->= 110 dB.  ``set_gains`` on each dynamic route against the JAX stream with
-the same change at the same step boundary >= 110 dB; the dynamic stream
-tables equal to the JAX package's bit for bit.  The cat route consumes
-150,528 input samples a step at FL = 1024 and 160/147, so it runs at C = 1
-and n = 320,000: two steps before the flush.
+On a 1x1 mesh: the JAX package runs its flat route here (its fused rule
+wants a TPU or interpret mode); the port's flat, fused-frames and cat
+routes are each held against it at >= 110 dB, the JAX package's own gate
+for its routes against one another and against the one-shot chain.
+Checkpoint and resume: the port's resume bit for bit, a blob from either
+package resuming in the other >= 110 dB.  ``set_gains`` on each dynamic
+route against the JAX stream with the same change at the same step
+boundary >= 110 dB; the dynamic stream tables equal to the JAX package's
+bit for bit.  The cat route consumes 150,528 input samples a shard a step
+at FL = 1024 and 160/147, so it runs at n = 320,000: two steps before the
+flush at 1x1.
+
+On meshes beyond 1x1 (virtual meshes: the port's grid repeats the CPU
+device; the JAX mesh is the conftest's 8 virtual devices): the flat,
+fused, cat and dynamic cat routes at 1x2, 1x4 and 2x2 against the JAX
+stream on the JAX mesh of that shape, on two chunkings (>= 110 dB); resume
+bit for bit on each mesh and a 1x2 blob resumed on each; a JAX 1x4 blob
+resumed on the port's 1x4 mesh and the other way round; ``set_gains`` at
+nb = 2; a mesh over several devices (eager steps, tables copied to each
+shard's device) equal to the virtual mesh bit for bit.
 """
 from __future__ import annotations
+
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -39,6 +51,7 @@ from dsp_audio_project_tpu_torch.ops.eq_dynamic import (
 from dsp_audio_project_tpu_torch.oracle import snr_db
 from dsp_audio_project_tpu_torch.parallel import (
     DeviceMesh,
+    ProcessGrid,
     build_mesh,
     single_device_mesh,
 )
@@ -252,20 +265,45 @@ def test_dynamic_stream_tables_bit_for_bit(K, nb):
     assert (got.carry_loc is None) == (K == 1)
 
 
-def test_meshes_beyond_one_device_raise():
+def test_every_factorization_builds_and_streams():
+    """Every factorization of 8 builds over a repeated CPU device, and the
+    stream runs on it."""
     cpu = torch.device("cpu")
     mesh = build_mesh(pt.MeshConfig(), devices=[cpu])
     assert dict(mesh.shape) == {"channel": 1, "block": 1}
-    assert mesh.device == cpu
-    for mc, mb in ((1, 2), (2, 1), (2, 2)):
-        with pytest.raises(NotImplementedError, match="slice 7"):
-            build_mesh(pt.MeshConfig(channel_devices=mc, block_devices=mb),
-                       devices=[cpu] * 4)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        build_mesh(devices=[cpu, cpu])
+    assert mesh.device == cpu and mesh.shared
     _, cfg = configs()
-    with pytest.raises(NotImplementedError):
-        pt.ShardedStreamProcessor(cfg, FS, DeviceMesh(((cpu, cpu),)), 2)
+    x = signals(2, 3000, 8)
+    for mc in (1, 2, 4, 8):
+        m = build_mesh(pt.MeshConfig(channel_devices=mc,
+                                     block_devices=8 // mc),
+                       devices=[cpu] * 8)
+        assert dict(m.shape) == {"channel": mc, "block": 8 // mc}
+        assert m.shared and m.device == cpu and len(m.local_shards) == 8
+        z = stream_through(pt.ShardedStreamProcessor(cfg, FS, m, 2), x,
+                           [3000])
+        assert z.shape == (2, cfg.src.output_length(3000))
+    assert dict(build_mesh(devices=[cpu, cpu]).shape) == {"channel": 1,
+                                                          "block": 2}
+
+
+def test_meshes_beyond_one_device_raise():
+    """What still raises beyond one device: a mesh wanting more devices
+    than it is given, ``device`` on a mesh over several devices, and a
+    process-group mesh in the stream."""
+    cpu = torch.device("cpu")
+    _, cfg = configs()
+    with pytest.raises(ValueError):
+        build_mesh(pt.MeshConfig(channel_devices=2, block_devices=2),
+                   devices=[cpu] * 3)
+    several = build_mesh(pt.MeshConfig(block_devices=2),
+                         devices=["cpu", "cpu:0"])
+    assert not several.shared
+    with pytest.raises(ValueError):
+        several.device
+    grid = ProcessGrid(((0, 1),), 0, (None,))
+    with pytest.raises(ValueError, match="process"):
+        pt.ShardedStreamProcessor(cfg, FS, DeviceMesh(((cpu, cpu),), process=grid), 2)
 
 
 def test_fused_rule():
@@ -303,3 +341,182 @@ def test_short_stream_and_bypass_paths():
     got = stream_through(port(cfg, 2), loud, [12345, 30000])
     assert np.abs(got).max() > 1.5
     assert min_snr(want, got) >= GATE_DB
+
+
+# ---- meshes beyond 1x1 -----------------------------------------------------
+
+MESHES = [(1, 2), (1, 4), (2, 2)]
+LONG_CHUNKS = ([320000], [977, 30000, 123456, 320000])
+
+
+def port_mesh(mc, mb, devices=("cpu",) * 4):
+    return build_mesh(pt.MeshConfig(channel_devices=mc, block_devices=mb),
+                      devices=list(devices))
+
+
+def jmesh_of(mc, mb):
+    return jax_mesh(JMeshConfig(channel_devices=mc, block_devices=mb))
+
+
+@pytest.fixture(scope="module")
+def long_two_channels():
+    """C = 2, n = 320,000: a cat step of 1024 frames a shard covers
+    150,528 samples a shard, so every block shard of 1x2 carries signal
+    and shard 1 of 1x4 too.  The JAX flat stream at FL 1024 on each JAX
+    mesh, static (GAINS) and dynamic (GAINS_A)."""
+    x = signals(2, 320000, 61)
+    jcfg, cfg = configs()
+    want = {}
+    for mc, mb in MESHES:
+        for dyn in (False, True):
+            kw = dict(frames_per_shard=1024,
+                      **({"gains_db": GAINS_A} if dyn else {}))
+            want[(mc, mb, dyn)] = stream_through(
+                JShardedStreamProcessor(jcfg, FS, jmesh_of(mc, mb), 2, **kw),
+                x, [100000, 320000])
+    return x, jcfg, cfg, want
+
+
+MESH_ROUTES = [
+    ("flat", dict(fused=False), False),
+    ("fused", dict(), False),
+    ("cat", dict(frames_per_shard=1024), False),
+    ("dynamic cat", dict(frames_per_shard=1024, gains_db=GAINS_A), True),
+]
+
+
+@pytest.mark.parametrize("mc,mb", MESHES)
+@pytest.mark.parametrize("route,kw,dyn", MESH_ROUTES,
+                         ids=[r[0] for r in MESH_ROUTES])
+def test_routes_match_jax_on_meshes(long_two_channels, mc, mb, route, kw,
+                                    dyn):
+    """Each route on a (mc, mb) virtual CPU mesh against the JAX stream on
+    the JAX mesh of that shape, on two chunkings."""
+    x, _, cfg, want = long_two_channels
+    for chunks in LONG_CHUNKS:
+        sp = pt.ShardedStreamProcessor(cfg, FS, port_mesh(mc, mb), 2, **kw)
+        assert (sp._nb, sp._mc) == (mb, mc)
+        assert (sp._cat or sp._cat_dyn) == ("cat" in route)
+        z = stream_through(sp, x, chunks)
+        assert min_snr(want[(mc, mb, dyn)], z) >= GATE_DB
+
+
+@pytest.mark.parametrize("mc,mb", MESHES)
+def test_resume_bit_for_bit_on_meshes(long_two_channels, mc, mb):
+    """A checkpoint mid-stream (after two or more steps of 128 frames a
+    shard) resumes bit for bit on each mesh; a blob taken on 1x2 resumes
+    on this mesh >= 110 dB against the JAX stream."""
+    x, _, cfg, want = long_two_channels
+    kw = dict(frames_per_shard=128)
+    mesh = port_mesh(mc, mb)
+    full = stream_through(pt.ShardedStreamProcessor(cfg, FS, mesh, 2, **kw),
+                          x, [170000, 320000])
+    sp1 = pt.ShardedStreamProcessor(cfg, FS, mesh, 2, **kw)
+    part1 = sp1.process(x[:, :170000])
+    assert sp1._frames_done >= 2 * sp1._F_sup
+    sp2 = pt.ShardedStreamProcessor.resume(cfg, mesh, 2, sp1.state_bytes(),
+                                           **kw)
+    got = np.concatenate([part1, sp2.process(x[:, 170000:]), sp2.flush()], 1)
+    np.testing.assert_array_equal(full, got)
+
+    sp1 = pt.ShardedStreamProcessor(cfg, FS, port_mesh(1, 2), 2, **kw)
+    part1 = sp1.process(x[:, :170000])
+    sp2 = pt.ShardedStreamProcessor.resume(cfg, mesh, 2, sp1.state_bytes(),
+                                           **kw)
+    got = np.concatenate([part1, sp2.process(x[:, 170000:]), sp2.flush()], 1)
+    assert min_snr(want[(mc, mb, False)], got) >= GATE_DB
+
+
+def test_jax_blob_resumes_on_a_port_mesh(long_two_channels):
+    """A JAX 1x4 stream's blob resumes on the port's 1x4 mesh, and the
+    port's on the JAX mesh, >= 110 dB against the uninterrupted JAX run."""
+    x, jcfg, cfg, want = long_two_channels
+    kw = dict(frames_per_shard=128)
+    ref = want[(1, 4, False)]
+    sj = JShardedStreamProcessor(jcfg, FS, jmesh_of(1, 4), 2, **kw)
+    part1 = sj.process(x[:, :170000])
+    assert sj._frames_done >= 2 * 4 * 128
+    sp = pt.ShardedStreamProcessor.resume(cfg, port_mesh(1, 4), 2,
+                                          sj.state_bytes(), **kw)
+    got = np.concatenate([part1, sp.process(x[:, 170000:]), sp.flush()], 1)
+    assert min_snr(ref, got) >= GATE_DB
+
+    sp = pt.ShardedStreamProcessor(cfg, FS, port_mesh(1, 4), 2, **kw)
+    part1 = sp.process(x[:, :170000])
+    assert sp._frames_done >= 2 * 4 * 128
+    sj = JShardedStreamProcessor.resume(jcfg, jmesh_of(1, 4), 2,
+                                        sp.state_bytes(), **kw)
+    got = np.concatenate([part1, sj.process(x[:, 170000:]), sj.flush()], 1)
+    assert min_snr(ref, got) >= GATE_DB
+
+
+@pytest.mark.parametrize("route,kw", [
+    ("frames", dict(frames_per_shard=512)),
+    ("cat", dict(frames_per_shard=1024)),
+])
+def test_set_gains_on_two_block_shards(route, kw):
+    """``set_gains`` at nb = 2 against the JAX stream on a JAX 1x2 mesh
+    with the same change at the same step boundary."""
+    x = signals(1, 640000, 43)
+    jcfg, cfg = configs(gains={"Bass": 6})
+    cut = 320000
+
+    def run(sp):
+        part1 = sp.process(x[:, :cut])
+        sp.set_gains(GAINS_B)
+        return part1.shape[1], np.concatenate(
+            [part1, sp.process(x[:, cut:]), sp.flush()], axis=1)
+
+    m, want = run(JShardedStreamProcessor(jcfg, FS, jmesh_of(1, 2), 1,
+                                          gains_db=GAINS_A, **kw))
+    sp = pt.ShardedStreamProcessor(cfg, FS, port_mesh(1, 2), 1,
+                                   gains_db=GAINS_A, **kw)
+    assert sp._cat_dyn == (route == "cat")
+    m_port, z = run(sp)
+    assert m_port == m > 0
+    assert min_snr(want, z) >= GATE_DB
+
+
+def test_several_devices_run_eagerly(long_two_channels):
+    """A mesh over several devices ("cpu" and "cpu:0" are two torch
+    devices) runs the same step with the tables copied to each shard's
+    device, equal to the virtual mesh bit for bit; ``set_gains`` reaches
+    every copy."""
+    x, _, cfg, _ = long_two_channels
+    devs = ("cpu", "cpu:0", "cpu:1", "cpu:2")
+    for kw in (dict(frames_per_shard=1024),
+               dict(frames_per_shard=512, gains_db=GAINS_A)):
+        z = {}
+        for name, mesh in (("virtual", port_mesh(2, 2)),
+                           ("several", port_mesh(2, 2, devs))):
+            sp = pt.ShardedStreamProcessor(cfg, FS, mesh, 2, **kw)
+            part1 = sp.process(x[:, :200000])
+            if "gains_db" in kw:
+                sp.set_gains(GAINS_B)
+            z[name] = np.concatenate([part1, sp.process(x[:, 200000:]),
+                                      sp.flush()], 1)
+            assert (len(sp._tabs) == 1) == (name == "virtual")
+            if "gains_db" in kw:
+                for tab in sp._tabs.values():
+                    np.testing.assert_array_equal(tab["pk"].numpy(),
+                                                  sp._tab["pk"].numpy())
+        np.testing.assert_array_equal(z["virtual"], z["several"])
+
+
+def test_a_processor_is_freed_without_the_cycle_collector(long_two_channels):
+    """A processor that has stepped holds no reference cycle: dropping the
+    last reference frees it at once (on a card, its captured graphs with
+    it), never later by the cycle collector, which could run inside
+    another stream's capture and invalidate it."""
+    x, _, cfg, _ = long_two_channels
+    for mesh in (single_device_mesh("cpu"), port_mesh(2, 2)):
+        sp = pt.ShardedStreamProcessor(cfg, FS, mesh, 2, frames_per_shard=128)
+        sp.process(x[:, :100000])
+        assert sp._runner is not None and sp._frames_done > 0
+        ref = weakref.ref(sp)
+        gc.disable()
+        try:
+            del sp
+            assert ref() is None
+        finally:
+            gc.enable()
