@@ -9,7 +9,8 @@ Drives the port (dsp_audio_project_tpu_torch) at its real size — 44.1 ->
 on the cat, frames and explicit-kernel (fir_path = iir_path = 'pallas')
 paths, the dynamic-gain cat and frames paths, the streams (one signal in
 100 ms chunks; eight channels in super-steps on each route), the sharded
-chain and stream on virtual meshes of several shards on the card, the analysis
+chain and stream on virtual meshes of several shards on the card, the
+CLI, the native codec and the graph stages, the analysis
 ops (STFT, spectrogram, long-window spectra) and the experimental
 kernels' entry points, 60 s signals, batch 8 — through the entry points a
 user calls, and checks it.
@@ -107,7 +108,21 @@ Phases, one or more lines each:
      FL 1024, fused frames FL 512, dynamic cat), each counted, one capture
      covering every shard, >= 110 dB against the one-shot z, the eager step
      and a mid-stream checkpoint resumed bit for bit;
- 16. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs;
+ 16. [surfaces] the surfaces (io/, native/, cli.py, app/, models/graph.py):
+     the port's native codec built from native/ into _build/ and loaded;
+     an 8-channel 60 s PCM16 WAV of the batch decoded bit for bit equal
+     by the native engine and the numpy codec, ``encode_pcm16`` bit for
+     bit equal to ``export_wav``; ``cli.main`` one-shot at 160/147 with
+     the GAINS, --multichannel, --spectra and --report, counted (the
+     frames kernel, K9, K2), its WAV >= 60 dB against ``export_wav`` of
+     the oracle's z and within 1 LSB in >= 99.9 % of samples, its spectra
+     >= 60 dB against the oracle, the report written; --stream-chunk 0.1
+     and --mesh 1x1, counted, within 1 LSB of the one-shot WAV; an
+     oversized --mesh exits 2; the telephone ``Chain`` counted (the
+     frames kernel) and >= 60 dB against the stagewise oracle; [time]
+     surfaces (host clock, median of 5): the decodes, the int16 encodes,
+     and main() split into load, chain, export, spectra JSON, report;
+ 17. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs;
      the plain E2 versions, an 8192-step host loop, median of 2 after 2):
      the chains and analysis paths per call (per call, and per call of 20
      back-to-back calls; the host's own time per call), the cat chain with
@@ -139,8 +154,8 @@ record
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"},
 ...]}: ``launches`` sums the kernel's launches over the main-path runs of
 [slice], [frames], [analysis], [explicit], [dynamic] (its eager runs),
-[stream] (a) and (b), [sharded] (a replayed step launches through the
-graph and is counted at its capture and warm-up) and
+[stream] (a) and (b), [sharded], [surfaces] (a replayed step launches
+through the graph and is counted at its capture and warm-up) and
 the entry points' own runs in [k3] (serving shape), [e7] and [e6] (for K7
 and K8, calls of the
 two-pass launcher, each of which starts both passes, as the JAX K8's two
@@ -745,11 +760,10 @@ def phase_k9(pipe, k1: dict, k3: dict) -> dict:
             "lib": None, "bound": b}
 
 
-def oracle_outputs(pipe, xs: np.ndarray) -> list:
+def oracle_outputs(cfg, xs: np.ndarray) -> list:
     """Per signal: (y, z, [spectrum of x, y, z]) from the numpy oracle."""
     from dsp_audio_project_tpu_torch import oracle
 
-    cfg = pipe.config
     cap = cfg.spectrum.analysis_limit
     out = []
     for i in range(xs.shape[0]):
@@ -2135,6 +2149,302 @@ def phase_profile(chains: dict, calls: int = 5,
                 f"x{per_call:g}  {key[:90]}")
 
 
+# ---- the surfaces (io/, native/, cli.py, app/, models/graph.py) -------------
+
+SURFACE_CHUNK = "0.1"       # --stream-chunk seconds
+SURFACE_REPS = 5            # [time] surfaces: median of this many main() runs
+# The telephone chain of the Chain docstring (models/graph.py): 44.1 kHz ->
+# 6 kHz -> 44.1 kHz with an EQ between and a clip.
+TELEPHONE = ((20, 147, 4), {"Low Mids": 6}, (147, 20, 4))
+
+
+class Split:
+    """Host ms a main() run spends in each part: ``wrap`` replaces a
+    function or method by a timed one (synchronizing the card at its end,
+    so a part holds its own device work); a part called inside another is
+    counted in the outer one.  ``restore`` puts every original back."""
+
+    def __init__(self):
+        self.ms: dict = {}
+        self._active = None
+        self._undo = []
+
+    def wrap(self, owner, attr: str, part: str) -> None:
+        real = getattr(owner, attr)
+
+        def timed(*args, **kwargs):
+            if self._active is not None:
+                return real(*args, **kwargs)
+            self._active = part
+            t0 = time.perf_counter()
+            try:
+                out = real(*args, **kwargs)
+                torch.cuda.synchronize()
+                return out
+            finally:
+                self.ms[part] = (self.ms.get(part, 0.0)
+                                 + (time.perf_counter() - t0) * 1e3)
+                self._active = None
+
+        self._undo.append((owner, attr, real))
+        setattr(owner, attr, timed)
+
+    def restore(self) -> None:
+        for owner, attr, real in reversed(self._undo):
+            setattr(owner, attr, real)
+        self._undo.clear()
+
+
+def timed_main(argv: list, stream: bool) -> dict:
+    """One ``cli.main(argv)`` run split into load, chain, export, spectra
+    JSON and report (the stream route: its process() and flush() calls as
+    the chain, and no report); "other" is the rest of main().  The CLI's
+    own lines are not printed."""
+    import contextlib
+    import io
+
+    from dsp_audio_project_tpu_torch import cli, streaming
+    from dsp_audio_project_tpu_torch.app import report
+
+    split = Split()
+    split.wrap(cli, "load_signal", "load")
+    if stream:
+        for attr in ("process", "flush"):
+            split.wrap(streaming.ShardedStreamProcessor, attr, "chain")
+    else:
+        split.wrap(cli.AudioPipeline, "forward", "chain")
+    split.wrap(cli, "export_wav", "export")
+    split.wrap(cli, "_spectra_json", "spectra JSON")
+    split.wrap(report, "write_report", "report")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        split.restore()
+    if rc != 0:
+        raise RuntimeError(f"[time] surfaces: cli.main exited {rc}")
+    parts = dict(split.ms)
+    parts["other"] = total - sum(parts.values())
+    parts["main()"] = total
+    return parts
+
+
+def wav_pcm(path: str) -> np.ndarray:
+    """A PCM16 WAV's samples as int16 (N, C), with the file's rate."""
+    from dsp_audio_project_tpu_torch.io.wavio import read_wav
+
+    y, fs = read_wav(path)
+    return np.round(np.atleast_2d(y.T).T * 32768).astype(np.int16), fs
+
+
+def lsb_apart(tag: str, what: str, got: np.ndarray, want: np.ndarray,
+              bulk: float = 1.0) -> None:
+    """int16 samples at most 1 LSB apart in a ``bulk`` share of them."""
+    if got.shape != want.shape:
+        raise RuntimeError(f"[{tag}] {what}: {got.shape} vs {want.shape}")
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    share = float((diff <= 1).mean())
+    log(f"[{tag}] {what}: max {int(diff.max())} LSB apart, {share:.6f} of "
+        f"{diff.size} samples within 1 LSB (gate {bulk:g})")
+    if not share >= bulk:
+        raise RuntimeError(f"[{tag}] {what}: more than 1 LSB apart")
+
+
+def phase_surfaces(xs: np.ndarray, smi: str) -> dict:
+    """[surfaces]: the port's io/, native codec, CLI and graph at the
+    serving size, and [time] surfaces.
+
+    1. The native codec builds from native/ into _build/ (the run fails if
+       it does not load); an 8-channel 60 s 44.1 kHz PCM16 WAV of the
+       serving batch decodes bit for bit equal through the native engine
+       and ``engine="numpy"``, and ``encode_pcm16`` equals ``export_wav``'s
+       PCM bit for bit.
+    2. ``cli.main`` one-shot (-L 160 -M 147, the GAINS, --multichannel,
+       --spectra, --report), counted: the frames kernel, K9 and K2 must
+       launch; the WAV against ``export_wav`` of the numpy oracle's z for
+       the loaded input (all eight channels): >= 60 dB and within 1 LSB in
+       >= 99.9 % of samples; the spectra JSON >= 60 dB against
+       ``oracle.spectrum_oracle``; the report over 10 kB with its audio
+       element.
+    3. ``--stream-chunk 0.1`` (fused frames: the frames kernel and K9) and
+       ``--mesh 1x1`` (the frames kernel and K9), counted, each WAV within
+       1 LSB of the one-shot WAV; ``--mesh`` over more cards than are
+       visible exits 2.
+    4. The telephone ``Chain`` on the serving batch on the card, counted
+       (the frames kernel must launch), >= 60 dB against the stagewise
+       numpy oracle.
+    5. [time] surfaces: the two decodes, the native int16 encode beside
+       ``export_wav``, and main() one-shot and streamed split into its
+       parts, median of SURFACE_REPS runs each.
+    Returns the launches of the counted runs."""
+    import os
+    import tempfile
+
+    import dsp_audio_project_tpu_torch as pt
+    from dsp_audio_project_tpu_torch import cli, oracle
+    from dsp_audio_project_tpu_torch.io import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise RuntimeError("[surfaces] the native codec did not build/load")
+    lib = native.library_path()
+    log(f"[surfaces] native codec: {lib.parent.name}/{lib.name} built and "
+        f"loaded in {time.perf_counter() - t0:.2f} s")
+    cfg = pt.PipelineConfig(src=pt.SRCConfig(L=160, M=147),
+                            eq=pt.EQConfig.from_gains(GAINS))
+    gains = [arg for band, g in GAINS.items() for arg in ("-g", f"{band}={g}")]
+    total = None
+    with tempfile.TemporaryDirectory() as tmp:
+        path = functools.partial(os.path.join, tmp)
+        src = path("in.wav")
+        pt.export_wav(xs, FS, src)
+        with open(src, "rb") as fh:
+            data = fh.read()
+        x_nat, fs_nat = pt.load_signal(src, mono=False)
+        x_np, fs_np = pt.load_signal(src, mono=False, engine="numpy")
+        direct, _ = native.decode(data, mono=False)
+        if not (fs_nat == fs_np == FS and x_nat.shape == (BATCH, xs.shape[1])
+                and np.array_equal(x_nat, x_np)
+                and np.array_equal(direct, x_np)):
+            raise RuntimeError("[surfaces] native decode != numpy decode")
+        enc = native.encode_pcm16(x_nat)
+        pcm = np.frombuffer(pt.export_wav(x_nat, FS)[44:], "<i2")
+        if not np.array_equal(enc.reshape(-1), pcm):
+            raise RuntimeError("[surfaces] encode_pcm16 != export_wav")
+        log(f"[surfaces] {BATCH} x {SECONDS:.0f} s PCM16 WAV "
+            f"({len(data)} bytes): native decode == numpy decode bit for "
+            f"bit; encode_pcm16 == export_wav's PCM bit for bit")
+
+        # 2. the one-shot CLI
+        one, spec, rpt = path("one.wav"), path("spec.json"), path("r.html")
+        base = ["-L", "160", "-M", "147", "--no-ui-bounds", *gains,
+                "--multichannel"]
+        argv_one = [src, one, *base, "--spectra", spec, "--report", rpt]
+        rc, counts = run_counted(lambda: cli.main(argv_one))
+        if rc != 0:
+            raise RuntimeError(f"[surfaces] cli one-shot exited {rc}")
+        require("surfaces", counts, ("fir_frames_kernel", "eq_finish",
+                                     "rfft_four_step_magnitude"))
+        total = add_counts(total, counts)
+        want = oracle_outputs(cfg, x_np)
+        z_want = np.stack([z for _, z, _ in want])
+        got, fs_out = wav_pcm(one)
+        ref = np.frombuffer(pt.export_wav(z_want, 48000)[44:],
+                            "<i2").reshape(-1, BATCH)
+        q = min(oracle.snr_db(ref[:, i], got[:, i]) for i in range(BATCH))
+        log(f"[surfaces] cli one-shot WAV ({got.shape[0]} x {BATCH} @ "
+            f"{fs_out} Hz) vs export_wav of the oracle's z: min snr {q:.1f}"
+            f" dB (gate 60)")
+        if not (fs_out == 48000 and q >= 60.0):
+            raise RuntimeError("[surfaces] cli WAV below the oracle gate")
+        lsb_apart("surfaces", "cli one-shot WAV vs the oracle's", got, ref,
+                  0.999)
+        with open(spec) as fh:
+            spectra = json.load(fh)
+        worst = min(oracle.snr_db(s_want, np.asarray(
+            spectra[key]["magnitude"])[i])
+            for i, (_, _, specs) in enumerate(want)
+            for key, s_want in zip(("input", "resampled", "output"), specs))
+        log(f"[surfaces] cli spectra JSON vs oracle.spectrum_oracle: min snr"
+            f" {worst:.1f} dB over {3 * BATCH} (gate 60)")
+        if not worst >= 60.0:
+            raise RuntimeError("[surfaces] spectra below the oracle gate")
+        with open(rpt) as fh:
+            html = fh.read()
+        log(f"[surfaces] report: {len(html)} bytes, {html.count('<svg')} "
+            "charts")
+        if len(html) <= 10_000 or "<audio" not in html:
+            raise RuntimeError("[surfaces] the report lacks its audio")
+
+        # 3. streamed, and over a 1x1 mesh
+        routes = (("stream", ["--stream-chunk", SURFACE_CHUNK]),
+                  ("mesh 1x1", ["--mesh", "1x1"]))
+        for name, extra in routes:
+            out = path(f"{name.replace(' ', '_')}.wav")
+            rc, counts = run_counted(lambda: cli.main([src, out, *base,
+                                                       *extra]))
+            if rc != 0:
+                raise RuntimeError(f"[surfaces] cli {name} exited {rc}")
+            require("surfaces", counts, ("fir_frames_kernel", "eq_finish"))
+            total = add_counts(total, counts)
+            lsb_apart("surfaces", f"cli {name} WAV vs one-shot",
+                      wav_pcm(out)[0], got)
+        over = f"1x{torch.cuda.device_count() + 1}"
+        rc = cli.main([src, path("x.wav"), *base, "--mesh", over])
+        log(f"[surfaces] cli --mesh {over}: exit {rc} (want 2)")
+        if rc != 2:
+            raise RuntimeError("[surfaces] an oversized mesh did not exit 2")
+
+        # 4. the telephone chain
+        (l1, m1, f1), eq_gains, (l2, m2, f2) = TELEPHONE
+        stages = [pt.Resample(pt.SRCConfig(L=l1, M=m1, taps_rule_factor=f1)),
+                  pt.Equalize(pt.EQConfig.from_gains(eq_gains)),
+                  pt.Resample(pt.SRCConfig(L=l2, M=m2, taps_rule_factor=f2)),
+                  pt.Clip()]
+        x = torch.as_tensor(x_np, device=DEVICE)
+        (y, fs_tel), counts = run_counted(lambda: pt.Chain(stages)(x, FS))
+        require("surfaces", counts, ("fir_frames_kernel",))
+        total = add_counts(total, counts)
+        y = y.cpu().numpy()
+        q = math.inf
+        for i in range(BATCH):
+            o1, r1 = oracle.resample_oracle(x_np[i], FS, stages[0].config,
+                                            "fast")
+            o2 = oracle.equalize_oracle(o1, r1, stages[1].config)
+            o3, r3 = oracle.resample_oracle(o2.astype(np.float32), r1,
+                                            stages[2].config, "fast")
+            o3 = np.clip(o3, -1.0, 1.0)
+            if o3.shape != y[i].shape or r3 != fs_tel:
+                raise RuntimeError(f"[surfaces] telephone {y[i].shape} @ "
+                                   f"{fs_tel} vs {o3.shape} @ {r3}")
+            q = min(q, oracle.snr_db(o3, y[i]))
+        log(f"[surfaces] telephone Chain {BATCH} x {y.shape[1]} @ {fs_tel} Hz"
+            f" vs the stagewise oracle: min snr {q:.1f} dB (gate 60)")
+        if not q >= 60.0:
+            raise RuntimeError("[surfaces] telephone below the oracle gate")
+
+        # 5. [time] surfaces
+        dec = {}
+        for engine in ("auto", "numpy"):
+            ts = []
+            for _ in range(SURFACE_REPS):
+                t0 = time.perf_counter()
+                pt.load_signal(src, mono=False, engine=engine)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            dec[engine] = statistics.median(ts)
+        z32 = z_want.astype(np.float32)
+        for name, fn in (("encode_pcm16", lambda: native.encode_pcm16(z32)),
+                         ("export_wav", lambda: pt.export_wav(z32, 48000))):
+            ts = []
+            for _ in range(SURFACE_REPS):
+                t0 = time.perf_counter()
+                fn()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            dec[name] = statistics.median(ts)
+        log(f"[time] surfaces, card {smi}: decode of the {BATCH} x "
+            f"{SECONDS:.0f} s WAV ({len(data)} bytes), median of "
+            f"{SURFACE_REPS}: native {dec['auto']:.2f} ms, numpy "
+            f"{dec['numpy']:.2f} ms; int16 encode of the one-shot's "
+            f"({BATCH}, {z32.shape[1]}) z: native encode_pcm16 "
+            f"{dec['encode_pcm16']:.2f} ms, export_wav to bytes "
+            f"{dec['export_wav']:.2f} ms")
+        for name, argv, stream in (
+                ("one-shot", argv_one, False),
+                ("--stream-chunk " + SURFACE_CHUNK,
+                 [src, path("t.wav"), *base, "--stream-chunk", SURFACE_CHUNK,
+                  "--spectra", path("t.json")], True)):
+            runs = [timed_main(argv, stream) for _ in range(SURFACE_REPS)]
+            med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+            log(f"[time] surfaces, card {smi}: cli.main {name}, median of "
+                f"{SURFACE_REPS}: " + ", ".join(
+                    f"{k} {v:.2f} ms" for k, v in med.items()))
+    return total
+
+
 def main() -> None:
     profile_too = "--profile" in sys.argv[1:]
     kind, smi = phase_device()
@@ -2164,7 +2474,7 @@ def main() -> None:
     k7 = phase_k7(x)
     k8 = phase_k8(x)
     t0 = time.perf_counter()
-    want = oracle_outputs(pipe, xs)
+    want = oracle_outputs(cfg, xs)
     log(f"[oracle] numpy oracle for {BATCH} signals: "
         f"{time.perf_counter() - t0:.2f} s")
     slice_counts, z_one = phase_slice(pipe, x, want)
@@ -2183,6 +2493,7 @@ def main() -> None:
     stream_counts = phase_stream_sharded(cfg, xs, z_one)
     sharded_counts, sharded_errs = phase_sharded(cfg, x, xs, want, z_one)
     del z_one
+    surfaces_counts = phase_surfaces(xs, smi)
     for tag, err in sharded_errs.items():
         k = {"k1": k1, "k3": k3}[tag]
         k["max_abs_err"] = max(k["max_abs_err"], err)
@@ -2190,7 +2501,7 @@ def main() -> None:
         k = {"k1": k1, "k3": k3, "k9": k9}[tag]
         k["max_abs_err"] = max(k["max_abs_err"], err)
     runs += [e7_counts, e6_counts, k3_counts, dyn_counts, stream_one_counts,
-             stream_counts, sharded_counts]
+             stream_counts, sharded_counts, surfaces_counts]
     launches = {k: sum(r[k] for r in runs) for k in runs[0]}
 
     chains = {

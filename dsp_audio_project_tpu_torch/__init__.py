@@ -10,11 +10,16 @@ spectra (slice 3), the explicit-kernel routes (slice 4), dynamic gains
 (slice 6: ``StreamProcessor``, ``ShardedStreamProcessor``,
 ``StreamState``, ``equalize_stream``) and sharding (slice 7: the
 (channel, block) mesh, ``run_sharded``, the multi-process mesh of
-``parallel/distributed.py``).  The JAX
+``parallel/distributed.py``) and the surfaces (slice 8: ``io/`` with
+its native WAV codec, the ``models/graph`` stages, ``cli.py`` and
+``app/``).  The JAX
 package beside it is the reference the port is tested against; this
 package imports neither jax nor it.
 
 Public entry points:
+    load_signal / export_wav,
+    read_wav / write_wav,
+    example_signal                    host-side audio I/O (numpy)
     process(x, fs, config)            the full SRC->EQ chain
     resample / equalize               individual stages
     equalize_stream                   EQ of a chunk with its carry state
@@ -30,6 +35,9 @@ Public entry points:
     magnitude_spectrum, angular_spectrum, spectrum_db,
     stft, spectrogram, stft_planes    analysis
     AudioPipeline                     configured pipeline (a torch Module)
+    Chain, Stage, Resample, Equalize,
+    Gain, Clip, Normalize             composable stage graphs
+    python -m dsp_audio_project_tpu_torch.cli   the command line
 
 Each runs on the card unless the caller passes ``device="cpu"`` (a tensor
 input stays on its own device).
@@ -49,11 +57,22 @@ from .config import (  # noqa: E402
     SpectrumConfig,
     SRCConfig,
 )
+from .io.signal_io import example_signal, export_wav, load_signal  # noqa: E402
+from .io.wavio import read_wav, write_wav  # noqa: E402
 from .models.chain import (  # noqa: E402
     AudioPipeline,
     PipelineOutputs,
     design_tables,
     tables_from_numpy,
+)
+from .models.graph import (  # noqa: E402
+    Chain,
+    Clip,
+    Equalize,
+    Gain,
+    Normalize,
+    Resample,
+    Stage,
 )
 from .ops.eq import equalize, equalize_stream  # noqa: E402
 from .ops.eq_dynamic import (  # noqa: E402
@@ -95,15 +114,22 @@ def process(x, fs, config: PipelineConfig = PipelineConfig(), device=None):
 
 __all__ = [
     "AudioPipeline",
+    "Chain",
+    "Clip",
     "EQConfig",
+    "Equalize",
+    "Gain",
     "KernelConfig",
     "MeshConfig",
+    "Normalize",
     "PipelineConfig",
     "PipelineOutputs",
+    "Resample",
     "SRCConfig",
     "ShardPlan",
     "ShardedStreamProcessor",
     "SpectrumConfig",
+    "Stage",
     "StreamProcessor",
     "StreamState",
     "angular_spectrum",
@@ -116,8 +142,12 @@ __all__ = [
     "equalize_dynamic_frames",
     "equalize_dynamic_frames_ops",
     "equalize_stream",
+    "example_signal",
+    "export_wav",
+    "load_signal",
     "magnitude_spectrum",
     "process",
+    "read_wav",
     "resample",
     "run_sharded",
     "single_device_mesh",
@@ -126,4 +156,5 @@ __all__ = [
     "stft",
     "stft_planes",
     "tables_from_numpy",
+    "write_wav",
 ]

@@ -151,3 +151,11 @@ def test_import_pins_fp32():
     from dsp_audio_project_tpu_torch.utils.precision import fp32_pinned
 
     assert fp32_pinned()
+
+
+def test_exports_cover_jax():
+    """Every name the JAX package exports, the port exports too."""
+    import dsp_audio_project_tpu as jpkg
+
+    assert not set(jpkg.__all__) - set(pt.__all__)
+    assert all(hasattr(pt, name) for name in pt.__all__)

@@ -38,7 +38,11 @@ Sharding: ``run_sharded`` (plain, fused, cat) on virtual 1x4 and 2x2
 meshes of cuda:0 vs the same mesh on the CPU and vs the card at 1x1 (>
 110 dB), a launch a shard; the sharded stream on those meshes: one
 capture covering every shard, the replays bit for bit against the eager
-step and a resumed checkpoint, > 110 dB against the CPU.
+step and a resumed checkpoint, > 110 dB against the CPU.  The surfaces:
+the native codec built into ``_build/`` and equal to the numpy codec; the
+CLI one-shot at 160/147 on the card (the frames kernel, K9 and K2
+launched) within 1 LSB of its ``--device cpu`` run, spectra > 110 dB; the
+telephone ``Chain`` on the card vs ``device="cpu"`` > 110 dB.
 """
 from __future__ import annotations
 
@@ -1061,3 +1065,75 @@ def test_stream_capture_after_a_dropped_processor(cuda):
         sp = sharded(None, "fused frames")
         assert stream(sp, x, STREAM_CHUNKS).tobytes() == want.tobytes()
         assert sp.captures == 1
+
+
+# ---- the surfaces: the native codec, the CLI, the graph stages -------------
+
+def test_native_codec_builds_and_loads(cuda):
+    """The port's codec builds from its own native/ into _build/ on the
+    GPU host and decodes and encodes equal to the numpy codec."""
+    from dsp_audio_project_tpu_torch.io import native
+
+    assert native.available()
+    path = native.library_path()
+    assert path.parent.name == "_build" and path.exists()
+    assert path.parent.parent.name == "dsp_audio_project_tpu_torch"
+    x = make_x(3, 4000, seed=11)
+    data = pt.export_wav(x, FS)
+    got, fs = native.decode(data, mono=False)
+    want, fs_np = pt.load_signal(data, mono=False, engine="numpy")
+    assert fs == fs_np == FS and np.array_equal(got, want)
+    pcm = np.frombuffer(pt.export_wav(got, FS)[44:], "<i2")
+    assert np.array_equal(native.encode_pcm16(got).reshape(-1), pcm)
+
+
+def test_cli_one_shot_on_card(cuda, tmp_path):
+    """The CLI on the card at 160/147 with --spectra and --report: the
+    frames kernel, K9 and K2 launch; its WAV is within 1 LSB of the
+    --device cpu run's and its spectra > 110 dB against them."""
+    import json
+
+    from dsp_audio_project_tpu_torch import cli
+
+    src = str(tmp_path / "in.wav")
+    pt.export_wav(make_x(2, FS // 2, seed=12), FS, src)
+    base = [src, "-L", "160", "-M", "147", "--no-ui-bounds", "-g", "Bass=6",
+            "-g", "Presence=-4", "--multichannel"]
+    outs = {}
+    for tag, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        paths = [str(tmp_path / f"{tag}.{e}") for e in ("wav", "json", "html")]
+        reset_launch_counts()
+        assert cli.main([base[0], paths[0], *base[1:], *extra, "--spectra",
+                         paths[1], "--report", paths[2]]) == 0
+        outs[tag] = paths, launch_counts()
+    counts = outs["card"][1]
+    for name in ("fir_frames_kernel", "eq_finish", "rfft_four_step_magnitude"):
+        assert counts[name] >= 1, (name, counts)
+    assert sum(outs["cpu"][1].values()) == 0
+    a, fa = pt.read_wav(outs["card"][0][0])
+    b, fb = pt.read_wav(outs["cpu"][0][0])
+    assert fa == fb == 48000 and a.shape == b.shape == (24000, 2)
+    assert np.abs(a - b).max() * 32768 <= 1.0
+    for key in ("input", "resampled", "output"):
+        got, want = (np.asarray(json.load(open(outs[t][0][1]))[key]
+                                ["magnitude"]) for t in ("card", "cpu"))
+        assert snr_db(want.ravel(), got.ravel()) > 110, key
+    assert "<audio" in open(outs["card"][0][2]).read()
+
+
+def test_graph_chain_on_card_matches_cpu(cuda):
+    """The telephone Chain on the card (the frames kernel launches) against
+    the same chain with device="cpu": > 110 dB, the same rate."""
+    stages = [pt.Resample(pt.SRCConfig(L=20, M=147, taps_rule_factor=4)),
+              pt.Equalize(pt.EQConfig.from_gains({"Low Mids": 6})),
+              pt.Resample(pt.SRCConfig(L=147, M=20, taps_rule_factor=4)),
+              pt.Clip(), pt.Gain(-6.0), pt.Normalize()]
+    x = make_x(2, FS, seed=13)
+    reset_launch_counts()
+    got, fs = pt.Chain(stages)(x, FS)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda"
+    assert launch_counts()["fir_frames_kernel"] >= 2
+    want, fs_cpu = pt.Chain(stages, device="cpu")(x, FS)
+    assert fs == fs_cpu == FS and got.shape == want.shape
+    assert snr_db(host(want), host(got)) > 110
