@@ -10,7 +10,8 @@ on the cat, frames and explicit-kernel (fir_path = iir_path = 'pallas')
 paths, the dynamic-gain cat and frames paths, the streams (one signal in
 100 ms chunks; eight channels in super-steps on each route), the sharded
 chain and stream on virtual meshes of several shards on the card, the
-CLI, the native codec and the graph stages, the analysis
+CLI, the native codec and the graph stages, the port's bench and chip
+scripts, the analysis
 ops (STFT, spectrogram, long-window spectra) and the experimental
 kernels' entry points, 60 s signals, batch 8 — through the entry points a
 user calls, and checks it.
@@ -122,7 +123,28 @@ Phases, one or more lines each:
      frames kernel) and >= 60 dB against the stagewise oracle; [time]
      surfaces (host clock, median of 5): the decodes, the int16 encodes,
      and main() split into load, chain, export, spectra JSON, report;
- 17. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs;
+ 17. [bench] the port's bench (``dsp_audio_project_tpu_torch.bench``,
+     ``bench.run``) at its full width, counted (K1, K9, K2, the frames
+     kernel): the headline chains at 8 x 60 s, the accuracy gate over the
+     8 signals, the dynamic section, the 240 s stream at C = 8 and FL =
+     12288, the host baseline; its lines here, then its JSON record on a
+     line of its own with the [bench] prefix, which must hold bench.py's
+     keys and positive finite numbers; then one stream step at the bench's
+     FL 12288 with K1, the frames kernel and K9 held against their plain
+     versions at each geometry it launches (> 120 dB);
+ 18. [scripts] the chip scripts (``dsp_audio_project_tpu_torch.scripts``),
+     each counted: ``config_matrix`` (all 79 configurations at 1 s a
+     signal, each >= 60 dB through the call and, where supported, the cat
+     forward), ``rfft_sweep`` at its default sizes (K7 vs float64 numpy),
+     ``stream_sweep`` at FL 2048 and 8192, ``dyn_pipeline`` at 3 cycles
+     (its graph expand bit for bit against the eager one), and
+     ``graft_entry.entry()``'s program once (z >= 60 dB against the oracle);
+     K1, the frames kernel and K9 held against their plain versions at
+     every launch of config_matrix and graft_entry and at each geometry of
+     stream_sweep (its steps checked first, outside the timed passes) and
+     dyn_pipeline (> 120 dB, max abs err <= 1e-5 * max|ref|; the errors
+     go into the record's max_abs_err);
+ 19. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs;
      the plain E2 versions, an 8192-step host loop, median of 2 after 2):
      the chains and analysis paths per call (per call, and per call of 20
      back-to-back calls; the host's own time per call), the cat chain with
@@ -144,7 +166,8 @@ Phases, one or more lines each:
      replayed cat stream step at 1x4 against 1x1 at FL 2048.
      ``--profile`` adds device time by kernel (torch.profiler) for each
      chain and analysis path, the dynamic chains and the device builder,
-     one eager stream step (cat, FL 8192), and for E6 and E7.
+     one eager stream step (cat, FL 8192), and for E6 and E7.  Device
+     times from the profiler are ``utils/deviceprof``'s rows.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  The third line from the end is the card's name and power
@@ -154,8 +177,9 @@ record
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"},
 ...]}: ``launches`` sums the kernel's launches over the main-path runs of
 [slice], [frames], [analysis], [explicit], [dynamic] (its eager runs),
-[stream] (a) and (b), [sharded], [surfaces] (a replayed step launches
-through the graph and is counted at its capture and warm-up) and
+[stream] (a) and (b), [sharded], [surfaces], [bench], [scripts] (a
+replayed step launches through the graph and is counted at its capture
+and warm-up) and
 the entry points' own runs in [k3] (serving shape), [e7] and [e6] (for K7
 and K8, calls of the
 two-pass launcher, each of which starts both passes, as the JAX K8's two
@@ -180,6 +204,7 @@ Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -1979,23 +2004,15 @@ def sharded_kernels(cfg, x: torch.Tensor) -> dict:
 
 def device_ms(fn, calls: int = 3) -> float:
     """Device kernel time per call of fn (torch.profiler over ``calls``
-    calls after one warm-up call): the device activity's own time."""
-    from torch.profiler import ProfilerActivity, profile
+    calls after one warm-up call, ``utils/deviceprof``)."""
+    from dsp_audio_project_tpu_torch.utils.deviceprof import (
+        profile_device_span,
+    )
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for evt in prof.key_averages():
-        t = getattr(evt, "self_device_time_total",
-                    getattr(evt, "self_cuda_time_total", 0.0))
-        if t > 0 and evt.self_cpu_time_total == 0:
-            us += t
-    return us / calls / 1e3
+    prof = profile_device_span(lambda: [fn() for _ in range(calls)])
+    return prof.total_ms / calls
 
 
 def time_sharded(cfg, pipe, x: torch.Tensor, xs: np.ndarray) -> dict:
@@ -2120,8 +2137,11 @@ def host_ms(fn, reps: int = REPS) -> tuple[float, float, float]:
 def phase_profile(chains: dict, calls: int = 5,
                   shape: str = f"batch {BATCH} x {SECONDS:.0f} s") -> None:
     """torch.profiler over ``calls`` calls of each chain (after one warm-up
-    step): device time per call by kernel, and the total."""
+    step): device time per call by kernel (the rows
+    ``utils/deviceprof.device_rows`` counts), and the total."""
     from torch.profiler import ProfilerActivity, profile, schedule
+
+    from dsp_audio_project_tpu_torch.utils.deviceprof import device_rows
 
     for name, fn in chains.items():
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -2131,16 +2151,8 @@ def phase_profile(chains: dict, calls: int = 5,
                 fn()
                 torch.cuda.synchronize()
                 prof.step()
-        rows = []
-        for evt in prof.key_averages():
-            us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0.0))
-            # Device activity: device time and no CPU time; the profiler's
-            # own ProfilerStep span is not a kernel.
-            if (us > 0 and evt.self_cpu_time_total == 0
-                    and not evt.key.startswith("ProfilerStep")):
-                rows.append((us / calls, evt.count / calls, evt.key))
-        rows.sort(reverse=True)
+        rows = [(us / calls, count / calls, key)
+                for key, us, count in device_rows(prof.key_averages())]
         total = sum(r[0] for r in rows)
         log(f"[profile] {name}, {shape}: device kernel time {total:.1f} us "
             f"per call over {calls} calls")
@@ -2445,6 +2457,231 @@ def phase_surfaces(xs: np.ndarray, smi: str) -> dict:
     return total
 
 
+# ---- the bench, the chip scripts and the graft entry -------------------------
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
+BENCH_EXTRA = {"src_eq_ms_per_60s_signal", "full_chain_ms_per_60s_signal",
+               "streaming_samples_per_sec_per_chip"}
+STREAM_SWEEP_FLS = (2048, 8192)
+DYN_PIPELINE_CYCLES = 3
+
+
+def add_runs(runs: list) -> dict:
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+class LaunchChecker:
+    """Holds K1, the frames kernel and K9 against their plain versions at
+    the launches a path makes.  Inside ``on()``, each launch made outside a
+    CUDA-graph capture (a captured launch replays a geometry its warm-up
+    ran eagerly) is followed by its plain version on the same inputs, under
+    ``compare``'s bounds (> 120 dB and max abs err <= 1e-5 * max|ref|):
+    every launch, or with ``every=False`` only the first of each geometry
+    this checker has not seen.  The comparisons launch no kernel, so the
+    counts are untouched.  ``errs``: max abs err by record row."""
+
+    def __init__(self, tag: str):
+        self.tag = tag
+        self.errs = {"k1": 0.0, "k3": 0.0, "k9": 0.0}
+        self.seen: set = set()
+        self.held = {"k1": 0, "k3": 0, "k9": 0}
+        self.worst_db = {"k1": math.inf, "k3": math.inf, "k9": math.inf}
+        self.every = True
+
+    def _fresh(self, key) -> bool:
+        if torch.cuda.is_current_stream_capturing():
+            return False
+        if not self.every and key in self.seen:
+            return False
+        self.seen.add(key)
+        return True
+
+    def _hold(self, row: str, what: str, *pairs) -> None:
+        """One launch: each (kernel output, plain output) pair."""
+        for got, ref in pairs:
+            snr = snr_db(ref, got)
+            err = float((got - ref).abs().max())
+            top = float(ref.abs().max())
+            if not (got.shape == ref.shape and snr > 120.0
+                    and err <= 1e-5 * top):
+                raise RuntimeError(
+                    f"[{self.tag}] {what} {tuple(got.shape)} disagrees with "
+                    f"its plain version: snr {snr:.1f} dB (bound 120), max "
+                    f"abs err {err:.3e} (bound 1e-05 * {top:.3e})")
+            self.errs[row] = max(self.errs[row], err)
+            self.worst_db[row] = min(self.worst_db[row], snr)
+        self.held[row] += 1
+
+    @contextlib.contextmanager
+    def on(self, every: bool = True):
+        import importlib
+
+        fc = importlib.import_module(
+            "dsp_audio_project_tpu_torch.kernels.fir_class")
+        ef = importlib.import_module(
+            "dsp_audio_project_tpu_torch.kernels.eq_finish")
+        real = (fc._launch, fc._launch_frames, ef._launch)
+
+        def k1(x, g2, y0, inj, n, f_pad, W, V, P, s, pad_left):
+            real[0](x, g2, y0, inj, n, f_pad, W, V, P, s, pad_left)
+            if self._fresh(("k1", tuple(x.shape), f_pad, W, V, P, s,
+                            pad_left)):
+                y_ref, inj_ref = fc.fir_cat_plain(x, g2, P, s, f_pad,
+                                                  pad_left)
+                self._hold("k1", f"K1 (y0, inj) at P={P} s={s} W={W} V={V}",
+                           (y0, y_ref), (inj, inj_ref))
+
+        def k3(x, g, y, n, f_out, W, P, s, pad_left):
+            real[1](x, g, y, n, f_out, W, P, s, pad_left)
+            if self._fresh(("k3", tuple(x.shape), f_out, W, P, s, pad_left)):
+                self._hold("k3", f"frames kernel at P={P} s={s} W={W}",
+                           (y, fc.fir_frames_plain(x, g, s, f_out, pad_left)))
+
+        def k9(y0, st, gout, z, rows, U, d, ldy, vec):
+            real[2](y0, st, gout, z, rows, U, d, ldy, vec)
+            if self._fresh(("k9", tuple(y0.shape), y0.stride(), d, vec)):
+                self._hold("k9", f"K9 at U={U} d={d}",
+                           (z, ef.eq_finish_plain(y0, st, gout)))
+
+        self.every = every
+        fc._launch, fc._launch_frames, ef._launch = k1, k3, k9
+        try:
+            yield self
+        finally:
+            fc._launch, fc._launch_frames, ef._launch = real
+
+    def report(self, what: str) -> None:
+        log(f"[{self.tag}] {what}: launches held against their plain "
+            "versions (bound 120 dB, max abs err <= 1e-5 * max|ref|): " +
+            ", ".join(f"{row} {self.held[row]} (worst {self.worst_db[row]:.1f}"
+                      f" dB, max abs err {self.errs[row]:.3e})"
+                      for row in ("k1", "k3", "k9")))
+
+
+def stream_step_checked(cfg, fl: int, checker: LaunchChecker) -> None:
+    """The first step of the bench's stream processor (C = 8, ``fl``
+    frames a step, the bench's signal) under ``checker``: its eager
+    warm-up launches K1 and K9 at the step's geometry."""
+    from dsp_audio_project_tpu_torch import bench
+    from dsp_audio_project_tpu_torch.ops.src import make_plan
+    from dsp_audio_project_tpu_torch.parallel import single_device_mesh
+    from dsp_audio_project_tpu_torch.streaming import ShardedStreamProcessor
+
+    plan = make_plan(cfg.src.L, cfg.src.M, cfg.src.taps_rule_factor)
+    first = fl * plan.s + plan.W
+    xs = bench.signal_batch(bench.make_signal(first, FS),
+                            bench.STREAM_CHANNELS, seed=11)
+    sp = ShardedStreamProcessor(cfg, FS, single_device_mesh(),
+                                bench.STREAM_CHANNELS, frames_per_shard=fl)
+    with checker.on(every=False):
+        z = sp.process(xs)
+    if not (z.shape[1] > 0 and np.isfinite(z).all()):
+        raise RuntimeError(f"[{checker.tag}] the stream's first step at FL "
+                           f"{fl} gave {z.shape} or a non-finite value")
+
+
+def phase_bench() -> tuple[dict, dict]:
+    """[bench]: the port bench's run (``dsp_audio_project_tpu_torch.bench``)
+    at its full width, counted; its stderr lines here, its JSON line with
+    the [bench] prefix.  Then K1, the frames kernel and K9 at the geometry
+    the bench adds, one stream step at its FL, against their plain
+    versions (the run itself stays unchecked: its times would carry the
+    checks).  Returns the counts and the max abs err by record row."""
+    from dsp_audio_project_tpu_torch import bench
+
+    with contextlib.redirect_stderr(sys.stdout):
+        rec, counts = run_counted(bench.run)
+    require("bench", counts, ("polyphase_fir_class_rect_cat", "eq_finish",
+                              "rfft_four_step_magnitude",
+                              "fir_frames_kernel"))
+    numbers = [rec["value"], rec["vs_baseline"], *rec["extra"].values()]
+    if (set(rec) != BENCH_KEYS or set(rec["extra"]) != BENCH_EXTRA
+            or not all(math.isfinite(v) and v > 0 for v in numbers)):
+        raise RuntimeError(f"[bench] malformed record {rec}")
+    checker = LaunchChecker("bench")
+    stream_step_checked(bench.serving_config(), bench.STREAM_FL, checker)
+    checker.report(f"the stream's step at FL {bench.STREAM_FL}")
+    if not (checker.held["k1"] and checker.held["k9"]):
+        raise RuntimeError("[bench] the stream step held no K1 or K9 launch")
+    log("[bench] " + json.dumps(rec))
+    return counts, checker.errs
+
+
+def graft_entry_once() -> float:
+    """``graft_entry.entry()``'s program once: z >= 60 dB against the
+    oracle for both channels; returns the worst snr."""
+    from dsp_audio_project_tpu_torch import graft_entry, oracle
+    from dsp_audio_project_tpu_torch.config import EQConfig, SRCConfig
+
+    fn, (x,) = graft_entry.entry()
+    z, mags = fn(x)
+    src = SRCConfig(L=160, M=147)
+    eq = EQConfig.from_gains(graft_entry.GAINS)
+    n_out = src.output_length(x.shape[-1])
+    zf = z.reshape(x.shape[0], -1)[:, :n_out].cpu().numpy()
+    xs = x.cpu().numpy()
+    worst = min(oracle.snr_db(oracle.pipeline_oracle(
+        xs[i], FS, src, eq, engine="fast")[0], zf[i])
+        for i in range(xs.shape[0]))
+    log(f"[scripts] graft_entry.entry(): z {tuple(z.shape)}, spectra "
+        f"{[tuple(m.shape) for m in mags]}, min snr vs oracle {worst:.1f} dB "
+        "(gate 60)")
+    if not (worst >= 60.0 and all(bool(torch.isfinite(m).all())
+                                  for m in mags)):
+        raise RuntimeError("[scripts] graft_entry's program failed its gate")
+    return worst
+
+
+def phase_scripts() -> tuple[dict, dict]:
+    """[scripts]: config_matrix (79 configurations, 1 s a signal),
+    rfft_sweep (its default sizes), stream_sweep (FL 2048 and 8192),
+    dyn_pipeline (3 cycles) and graft_entry's program, each counted; their
+    stderr lines here.  K1, the frames kernel and K9 are held against their
+    plain versions at every launch of config_matrix and graft_entry, and at
+    the first launch of each geometry of stream_sweep and dyn_pipeline
+    (the stream's steps checked beforehand, so that no check falls inside
+    a timed or profiled pass).  Returns the counts and the max abs err by
+    record row."""
+
+    from dsp_audio_project_tpu_torch import bench
+    from dsp_audio_project_tpu_torch.scripts import (
+        config_matrix, dyn_pipeline, rfft_sweep, stream_sweep,
+    )
+
+    checker = LaunchChecker("scripts")
+    for fl in STREAM_SWEEP_FLS:
+        stream_step_checked(bench.serving_config(), fl, checker)
+    checker.report(f"stream steps at FL {STREAM_SWEEP_FLS}")
+    # config_matrix last: its checks' plain products load many cuBLAS
+    # kernels, after which the profiler lost the records of the next
+    # script's one-call K7 sessions in two H100 runs of two.
+    steps = (
+        ("rfft_sweep", rfft_sweep.run, True, ("rfft_four_step_tall",)),
+        ("stream_sweep", lambda: stream_sweep.run(STREAM_SWEEP_FLS), False,
+         ("polyphase_fir_class_rect_cat", "eq_finish")),
+        ("dyn_pipeline", lambda: dyn_pipeline.run(DYN_PIPELINE_CYCLES), False,
+         ("fir_frames_kernel", "eq_finish")),
+        ("graft_entry", graft_entry_once, True,
+         ("polyphase_fir_class_rect_cat", "eq_finish",
+          "rfft_four_step_magnitude")),
+        ("config_matrix", config_matrix.run, True,
+         ("fir_frames_kernel", "eq_finish", "polyphase_fir_class_rect_cat")),
+    )
+    runs = []
+    for name, fn, every, needed in steps:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(sys.stdout), checker.on(every):
+            res, counts = run_counted(fn)
+        require(f"scripts {name}", counts, needed)
+        if name == "config_matrix" and len(res) != 79:
+            raise RuntimeError(f"[scripts] config_matrix ran {len(res)} "
+                               "configurations, not 79")
+        log(f"[scripts] {name}: {time.perf_counter() - t0:.1f} s")
+        checker.report(f"up to {name}")
+        runs.append(counts)
+    return add_runs(runs), checker.errs
+
+
 def main() -> None:
     profile_too = "--profile" in sys.argv[1:]
     kind, smi = phase_device()
@@ -2494,15 +2731,19 @@ def main() -> None:
     sharded_counts, sharded_errs = phase_sharded(cfg, x, xs, want, z_one)
     del z_one
     surfaces_counts = phase_surfaces(xs, smi)
-    for tag, err in sharded_errs.items():
-        k = {"k1": k1, "k3": k3}[tag]
-        k["max_abs_err"] = max(k["max_abs_err"], err)
+    bench_counts, bench_errs = phase_bench()
+    scripts_counts, scripts_errs = phase_scripts()
+    for errs in (sharded_errs, bench_errs, scripts_errs):
+        for tag, err in errs.items():
+            k = {"k1": k1, "k3": k3, "k9": k9}[tag]
+            k["max_abs_err"] = max(k["max_abs_err"], err)
     for tag, err in phase_stream_kernels(cfg, xs).items():
         k = {"k1": k1, "k3": k3, "k9": k9}[tag]
         k["max_abs_err"] = max(k["max_abs_err"], err)
     runs += [e7_counts, e6_counts, k3_counts, dyn_counts, stream_one_counts,
-             stream_counts, sharded_counts, surfaces_counts]
-    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
+             stream_counts, sharded_counts, surfaces_counts, bench_counts,
+             scripts_counts]
+    launches = add_runs(runs)
 
     chains = {
         "pipe(x, fs, with_spectra=True)":

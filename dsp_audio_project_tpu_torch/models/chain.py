@@ -27,6 +27,11 @@ The forwards and the kernels they run:
   ``config.spectrum.nfft`` points: K2 (``kernels/rfft.py``) up to 8192,
   K7 and K8 (``kernels/rfft_two_pass.py``) from 16384 to 1048576.
 
+The forwards mark their stages with ``utils/profiling.trace_stage`` spans
+under the JAX package's names: ``src`` and ``eq`` (``_forward``),
+``src_frames`` and ``eq_frames``, ``src_eq_cat`` (K1 of both cat
+forwards), ``src_flat`` and ``eq_flat``.  A span is host-side only.
+
 The design tables of the cat and frames paths (the polyphase operator G,
 G2 = G @ w_cat, the EQ block operators at block 128*P / unroll P and the
 carry weights) are designed on the host in float64 for the input rate a
@@ -85,6 +90,7 @@ from ..ops.spectrum import (
 )
 from ..ops.src import make_plan, resample, resample_rows
 from ..utils.device import default_device
+from ..utils.profiling import trace_stage
 
 GROUPS_PER_BLOCK = 128   # EQ groups (frames) per block: block = 128 * P
 HOST_TABLES = ("G", "group_fir", "group_in") + EQ_TABLES
@@ -165,9 +171,7 @@ class AudioPipeline(nn.Module):
         maps "input", "resampled", "output" to (host freqs, |X|)."""
         x = self._input(x)
         fs_out = self.output_rate(fs)
-        kc = self.config.kernels
-        if (kc.fir_path == "auto" and kc.iir_path == "auto"
-                and self.frames_supported(x.shape[-1])):
+        if self.call_route(x.shape[-1]) == "frames":
             z, y = self.forward_frames_flat(x, fs)
         else:
             z, y = self._forward(x, fs)
@@ -182,12 +186,23 @@ class AudioPipeline(nn.Module):
         return PipelineOutputs(output=z, resampled=y, fs_out=fs_out,
                                spectra=spectra)
 
+    def call_route(self, n: int) -> str:
+        """The path ``forward`` takes for ``n`` samples: "frames" where
+        ``frames_supported`` holds and both kernel paths are 'auto', else
+        "flat" (``_forward``)."""
+        kc = self.config.kernels
+        return ("frames" if kc.fir_path == "auto" and kc.iir_path == "auto"
+                and self.frames_supported(n) else "flat")
+
     # ---- flat forward: resample (or E1) -> equalize ----------------------
 
     def _forward(self, x, fs: int):
         """(x, fs) -> (z, y) flat: ``_run_src`` then ``_run_eq``."""
-        y, fs_out = self._run_src(self._input(x), fs)
-        return self._run_eq(y, fs_out), y
+        with trace_stage("src"):
+            y, fs_out = self._run_src(self._input(x), fs)
+        with trace_stage("eq"):
+            z = self._run_eq(y, fs_out)
+        return z, y
 
     def _run_src(self, x: torch.Tensor, fs: int):
         cfg = self.config
@@ -248,10 +263,12 @@ class AudioPipeline(nn.Module):
             tables = self._tables(fs, frame_grid(n_out, plan.P)
                                   // GROUPS_PER_BLOCK)
             G = self.G
-        y_frames = fir_frames(x, plan, n_out, pad_frames=True, g=G)
-        z_frames = equalize_frames(y_frames, fs_out, cfg.eq,
-                                   groups_per_block=GROUPS_PER_BLOCK,
-                                   tables=tables)
+        with trace_stage("src_frames"):
+            y_frames = fir_frames(x, plan, n_out, pad_frames=True, g=G)
+        with trace_stage("eq_frames"):
+            z_frames = equalize_frames(y_frames, fs_out, cfg.eq,
+                                       groups_per_block=GROUPS_PER_BLOCK,
+                                       tables=tables)
         return z_frames, y_frames
 
     def forward_frames_flat(self, x, fs: int):
@@ -293,9 +310,12 @@ class AudioPipeline(nn.Module):
         cfg = self.config
         x = self._input(x)
         n_out = cfg.src.output_length(x.shape[-1])
-        y = polyphase_fir_class_flat(x, self._plan(), n_out,
-                                     pad_out=True)[..., :n_out]
-        return self._run_eq(y, cfg.src.output_rate(fs)), y
+        with trace_stage("src_flat"):
+            y = polyphase_fir_class_flat(x, self._plan(), n_out,
+                                         pad_out=True)[..., :n_out]
+        with trace_stage("eq_flat"):
+            z = self._run_eq(y, cfg.src.output_rate(fs))
+        return z, y
 
     def forward_flat_spectra(self, x, fs: int):
         """(x, fs) -> (z, y, (mag_x, mag_y, mag_z)) on the flat path."""
@@ -338,7 +358,9 @@ class AudioPipeline(nn.Module):
         n_out = cfg.src.output_length(n)
         fs_out = cfg.src.output_rate(fs)
         tables = self._tables(fs, frame_grid(n_out, plan.P) // GROUPS_PER_BLOCK)
-        pair = polyphase_fir_class_rect_cat(x, plan, n_out, None, g2=self.g2)
+        with trace_stage("src_eq_cat"):
+            pair = polyphase_fir_class_rect_cat(x, plan, n_out, None,
+                                                g2=self.g2)
         return x, pair, plan, n_out, fs_out, tables
 
     def forward_cat(self, x, fs: int, *, finish: str = "auto") -> torch.Tensor:

@@ -1,0 +1,17 @@
+"""The port's chip scripts, each run as
+``python -m dsp_audio_project_tpu_torch.scripts.<name>``:
+
+* ``config_matrix``: the 79 UI configurations through ``__call__`` and the
+  cat forward, each >= 60 dB against the oracle;
+* ``rfft_sweep``: the routed rfft kernel against the torch butterfly and
+  ``torch.fft.rfft`` at the large spectrogram sizes;
+* ``stream_sweep``: the sharded stream's super-step size against the
+  one-shot chain;
+* ``dyn_pipeline``: the steady, serial and pipelined dynamic-serving loops.
+
+Counterparts of the repo's ``scripts/`` of those names.  The JAX package's
+TPU probes (``mosaic_capability``, ``layout_probe``, ``mxu_issue_probe``,
+``split_ab``, ``cat_ab``, ``flat_vs_frames``) and ``sharded_real_chip`` have
+none: ``chip_smoke.py`` [time] and [sharded] answer their questions on the
+card.  ``pod_scaling`` waits for several cards.
+"""

@@ -24,7 +24,6 @@ through ``parallel/collectives.py``.
 from __future__ import annotations
 
 import dataclasses
-import gc
 import io
 import json
 from typing import Optional
@@ -56,7 +55,7 @@ from .ops.src import (
 )
 from .parallel import carry, collectives
 from .parallel.mesh import BLOCK_AXIS, CHANNEL_AXIS
-from .utils.device import default_device
+from .utils.device import capture_graph, default_device, warm_up
 
 
 @dataclasses.dataclass
@@ -373,7 +372,7 @@ class _StepRunner:
         cur.wait_event(self.uploaded[slot])
         if self.use_graphs:
             if self.graphs is None:
-                self._capture(cur, step)
+                self._capture(step)
             self.graphs[slot].replay()
             z = self.z_out[slot]
         else:
@@ -389,28 +388,14 @@ class _StepRunner:
             self.fetched[slot] = self.d2h.record_event()
         return zp, self.fetched[slot]
 
-    def _capture(self, cur, step) -> None:
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):   # lazy inits; the carry untouched
-            for _ in range(2):
-                step(self.x_dev[0], self.sigma.clone())
-        cur.wait_stream(side)
+    def _capture(self, step) -> None:
+        # Lazy inits first; the carry is untouched.
+        warm_up(lambda: step(self.x_dev[0], self.sigma.clone()), self.device)
         self.graphs, self.z_out = [], []
-        # A garbage collection inside a capture may destroy graphs or pinned
-        # buffers that cyclic garbage holds, and that invalidates the
-        # capture; torch.cuda.graph collects just before it begins.
-        gc_enabled = gc.isenabled()
-        gc.disable()
-        try:
-            for slot in range(2):
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph):
-                    self.z_out.append(self._body(step, slot))
-                self.graphs.append(graph)
-        finally:
-            if gc_enabled:
-                gc.enable()
+        for slot in range(2):
+            graph, z = capture_graph(lambda: self._body(step, slot))
+            self.graphs.append(graph)
+            self.z_out.append(z)
         self.captures += 1
 
     def fetch(self, pending, dest: np.ndarray) -> None:

@@ -1,5 +1,6 @@
-"""Where a call runs (the card unless the caller asks for the CPU), and
-the per-device cache of host-built constant tables.
+"""Where a call runs (the card unless the caller asks for the CPU), the
+per-device cache of host-built constant tables, and the CUDA-graph capture
+protocol the port's captures share.
 
 The port's entry points take ``device=None``.  A tensor stays on its own
 device; any other input (a numpy array, a list) goes to the card, and the
@@ -7,6 +8,8 @@ call raises when no CUDA device is visible; an explicit ``device`` (the
 CPU tests pass ``device="cpu"``) moves the input there.
 """
 from __future__ import annotations
+
+import gc
 
 import torch
 
@@ -45,3 +48,33 @@ def device_tables(table, *args, device):
                else torch.as_tensor(host, device=device))
         _tables[key] = hit
     return hit
+
+
+def warm_up(fn, device=None) -> None:
+    """``fn()`` twice on a side stream joined to the current one both ways:
+    the lazy initializations a CUDA-graph capture must not see."""
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    cur.wait_stream(side)
+
+
+def capture_graph(fn):
+    """(graph, fn()'s output): ``fn`` captured into one CUDA graph, with
+    automatic garbage collection off.  A collection inside a capture may
+    destroy graphs or pinned buffers that cyclic garbage holds, which
+    invalidates the capture (``torch.cuda.graph`` collects just before it
+    begins).  Warm ``fn`` up first (``warm_up``)."""
+    graph = torch.cuda.CUDAGraph()
+    gc_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            out = fn()
+    finally:
+        if gc_enabled:
+            gc.enable()
+    return graph, out

@@ -42,9 +42,18 @@ step and a resumed checkpoint, > 110 dB against the CPU.  The surfaces:
 the native codec built into ``_build/`` and equal to the numpy codec; the
 CLI one-shot at 160/147 on the card (the frames kernel, K9 and K2
 launched) within 1 LSB of its ``--device cpu`` run, spectra > 110 dB; the
-telephone ``Chain`` on the card vs ``device="cpu"`` > 110 dB.
+telephone ``Chain`` on the card vs ``device="cpu"`` > 110 dB.  utils/:
+``measure`` gives ``forward_cat`` a positive time; ``measure_device``
+reads about its profiled kernel time and refuses a function that syncs;
+``profile_device_ops`` lists K1's and K9's kernels and the ``src_eq_cat``
+span, and 200 one-call profiles of K7 each hold both kernels; the cat chain's
+``roofline_fraction`` lies in (0, 1.05]; a forward with its spans replays
+from a CUDA graph bit for bit; the bench's correctness section passes at
+8 x 60 s.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import pytest
@@ -1137,3 +1146,130 @@ def test_graph_chain_on_card_matches_cpu(cuda):
     want, fs_cpu = pt.Chain(stages, device="cpu")(x, FS)
     assert fs == fs_cpu == FS and got.shape == want.shape
     assert snr_db(host(want), host(got)) > 110
+
+
+def test_measure_times_forward_cat(cuda):
+    """utils/benchmarking on the card: a positive time for forward_cat,
+    and the differential forms run."""
+    from dsp_audio_project_tpu_torch.utils import benchmarking
+
+    pipe = pt.AudioPipeline(stream_cfg(), device=cuda)
+    ins = [(torch.as_tensor(make_x(2, 2 * FS, seed=s), device=cuda), FS)
+           for s in range(8)]
+    assert benchmarking.measure(pipe.forward_cat, ins[2:],
+                                warmup_inputs=ins[:2], passes=3) > 0
+    assert benchmarking.measure_differential(pipe.forward_cat, ins) > 0
+
+
+def test_measure_device_hides_the_host(cuda):
+    """measure_device: forward_cat at 8 x 60 s takes about its profiled
+    kernel time (the host hidden behind the spin); a function that waits
+    for the device raises."""
+    from dsp_audio_project_tpu_torch.utils import benchmarking
+    from dsp_audio_project_tpu_torch.utils.deviceprof import (
+        profile_device_ops,
+    )
+
+    pipe = pt.AudioPipeline(stream_cfg(), device=cuda)
+    x = torch.as_tensor(make_x(8, 60 * FS, seed=2), device=cuda)
+    dev_s = benchmarking.measure_device(pipe.forward_cat, x, FS)
+    prof_s = profile_device_ops(pipe.forward_cat, x, FS).total_ms / 1e3
+    assert 0.8 * prof_s < dev_s < 1.5 * prof_s
+    with pytest.raises(RuntimeError, match="waits for the device"):
+        benchmarking.measure_device(lambda v: (v * 2).sum().item() + 0 * v,
+                                    x)
+
+
+def test_device_profile_lists_kernels_and_span(cuda):
+    """profile_device_ops(forward_cat): K1's and K9's kernels among the
+    rows, the src_eq_cat span apart, the total their sum."""
+    from dsp_audio_project_tpu_torch.utils.deviceprof import (
+        profile_device_ops,
+    )
+
+    pipe = pt.AudioPipeline(stream_cfg(), device=cuda)
+    x = torch.as_tensor(make_x(8, 60 * FS, seed=1), device=cuda)
+    pipe.forward_cat(x, FS)
+    torch.cuda.synchronize()
+    prof = profile_device_ops(pipe.forward_cat, x, FS, top=100)
+    names = [name for name, _ in prof.ops]
+    assert any("fir_tf32_kernel" in name for name in names), names
+    assert any("eq_finish" in name for name in names), names
+    assert "src_eq_cat" in [name for name, _ in prof.spans], prof.spans
+    assert prof.total_ms == pytest.approx(sum(ms for _, ms in prof.ops))
+    assert 0 < prof.total_ms < 50
+
+
+def test_roofline_fraction_of_the_cat_chain(cuda):
+    """roofline_fraction of the full chain's reckoned bytes at its call
+    time on the H100 lies in (0, 1.05]."""
+    from dsp_audio_project_tpu_torch import bench
+    from dsp_audio_project_tpu_torch.utils import profiling
+    from dsp_audio_project_tpu_torch.utils.benchmarking import measure
+
+    if profiling.device_hbm_peak() is None:
+        pytest.skip(f"no HBM peak for {torch.cuda.get_device_name()}")
+    cfg = bench.serving_config()
+    pipe = pt.AudioPipeline(cfg, device=cuda)
+    n = int(bench.SECONDS * FS)
+    batches = bench.device_batches(bench.make_signal(n, FS), 4, cuda)
+    sec = measure(lambda v: pipe.forward_cat_spectra(v, FS), batches,
+                  warmup_inputs=batches[:1])
+    frac = profiling.roofline_fraction(
+        bench.chain_bytes(cfg, n, bench.BATCH), sec)
+    assert 0 < frac <= 1.05
+
+
+def test_bench_correctness_at_full_width(cuda):
+    """The bench's correctness section at 8 x 60 s on the card."""
+    from dsp_audio_project_tpu_torch import bench
+
+    acc = bench.check_accuracy(bench.SECONDS, bench.BATCH, device=cuda)
+    assert acc["route"] == "cat"
+    assert acc["snr_z"] >= 60 and acc["snr_spectra"] >= 60
+    assert acc["z"].shape == (bench.BATCH, 2880000)
+
+
+@pytest.mark.parametrize("fwd", ["forward_cat", "forward_frames"])
+def test_stage_spans_inside_a_cuda_graph(cuda, fwd):
+    """A forward with its trace_stage spans captured in a CUDA graph: the
+    replay equals the eager call bit for bit."""
+    pipe = pt.AudioPipeline(stream_cfg(), device=cuda)
+    x = torch.as_tensor(make_x(2, 2 * FS, seed=3), device=cuda)
+    call = getattr(pipe, fwd)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            call(x, FS)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call(x, FS)
+    graph.replay()
+    torch.cuda.synchronize()
+    got = out if isinstance(out, torch.Tensor) else out[0]
+    want = call(x, FS)
+    want = want if isinstance(want, torch.Tensor) else want[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_short_profiles_keep_their_kernels(cuda):
+    """200 one-call profiles of K7 (two kernels a call) through
+    utils/deviceprof: each holds both kernel records (none comes back
+    empty or short, which a session without the edge sleeps could)."""
+    from dsp_audio_project_tpu_torch.kernels.rfft_two_pass import (
+        rfft_four_step_tall,
+    )
+    from dsp_audio_project_tpu_torch.utils.deviceprof import (
+        profile_device_ops,
+    )
+
+    x = torch.randn(16, 131072, device=cuda)
+    mag = functools.partial(rfft_four_step_tall, magnitude=True)
+    mag(x)
+    torch.cuda.synchronize()
+    for _ in range(200):
+        prof = profile_device_ops(mag, x)
+        assert len(prof.ops) == 2 and prof.total_ms > 0, prof.ops
