@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (or every GPU of
+the host).
 
     python3 chip_smoke.py              # the run: build, check, time
     python3 chip_smoke.py --profile    # also torch.profiler tables by kernel
+
+(``python3 chip_smoke.py --multicard-worker RANK WORLD DIR`` is one rank of
+the [multicard] phase, which starts those processes itself.)
 
 Drives the port (dsp_audio_project_tpu_torch) at its real size — 44.1 ->
 48 kHz SRC (L/M = 160/147) + the 5-band EQ + |rfft| spectra of x, y and z
 on the cat, frames and explicit-kernel (fir_path = iir_path = 'pallas')
 paths, the dynamic-gain cat and frames paths, the streams (one signal in
 100 ms chunks; eight channels in super-steps on each route), the sharded
-chain and stream on virtual meshes of several shards on the card, the
+chain and stream on virtual meshes of several shards on the card and
+across cards (one process a card on NCCL, and one process over them), the
 CLI, the native codec and the graph stages, the port's bench and chip
 scripts, the analysis
 ops (STFT, spectrogram, long-window spectra) and the experimental
@@ -109,7 +114,21 @@ Phases, one or more lines each:
      FL 1024, fused frames FL 512, dynamic cat), each counted, one capture
      covering every shard, >= 110 dB against the one-shot z, the eager step
      and a mid-stream checkpoint resumed bit for bit;
- 16. [surfaces] the surfaces (io/, native/, cli.py, app/, models/graph.py):
+ 16. [multicard] several cards: one process a card (as many as the host
+     has; on one card, one), joined on NCCL through a file rendezvous in a
+     temporary directory, each running ``scripts/pod_scaling`` at 8 x 60 s
+     (``initialize``, ``multihost_mesh``, the halo and carry collectives,
+     ``gather_grid``; its gates: every channel >= 60 dB against the oracle
+     and >= 110 dB against a 1x1 run of rank 0's card) and then
+     ``run_sharded`` on each route over ``multihost_mesh`` at 1xN, Nx1 and
+     (N >= 4) 2x(N/2), each counted; z >= 60 dB against the oracle outputs
+     of [slice] and >= 110 dB against its ``forward_cat`` z.  With two
+     cards or more, the same routes and the stream (cat, fused frames,
+     dynamic cat: eager steps, a checkpoint resumed bit for bit) on meshes
+     over the cards held in this process; with one, a line says that those
+     were not run.  Every K1, frames-kernel and K9 launch of the phase, on
+     every card, is held against its plain version (``LaunchChecker``);
+ 17. [surfaces] the surfaces (io/, native/, cli.py, app/, models/graph.py):
      the port's native codec built from native/ into _build/ and loaded;
      an 8-channel 60 s PCM16 WAV of the batch decoded bit for bit equal
      by the native engine and the numpy codec, ``encode_pcm16`` bit for
@@ -123,7 +142,7 @@ Phases, one or more lines each:
      frames kernel) and >= 60 dB against the stagewise oracle; [time]
      surfaces (host clock, median of 5): the decodes, the int16 encodes,
      and main() split into load, chain, export, spectra JSON, report;
- 17. [bench] the port's bench (``dsp_audio_project_tpu_torch.bench``,
+ 18. [bench] the port's bench (``dsp_audio_project_tpu_torch.bench``,
      ``bench.run``) at its full width, counted (K1, K9, K2, the frames
      kernel): the headline chains at 8 x 60 s, the accuracy gate over the
      8 signals, the dynamic section, the 240 s stream at C = 8 and FL =
@@ -132,7 +151,7 @@ Phases, one or more lines each:
      keys and positive finite numbers; then one stream step at the bench's
      FL 12288 with K1, the frames kernel and K9 held against their plain
      versions at each geometry it launches (> 120 dB);
- 18. [scripts] the chip scripts (``dsp_audio_project_tpu_torch.scripts``),
+ 19. [scripts] the chip scripts (``dsp_audio_project_tpu_torch.scripts``),
      each counted: ``config_matrix`` (all 79 configurations at 1 s a
      signal, each >= 60 dB through the call and, where supported, the cat
      forward), ``rfft_sweep`` at its default sizes (K7 vs float64 numpy),
@@ -144,7 +163,7 @@ Phases, one or more lines each:
      stream_sweep (its steps checked first, outside the timed passes) and
      dyn_pipeline (> 120 dB, max abs err <= 1e-5 * max|ref|; the errors
      go into the record's max_abs_err);
- 19. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs;
+ 20. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs;
      the plain E2 versions, an 8192-step host loop, median of 2 after 2):
      the chains and analysis paths per call (per call, and per call of 20
      back-to-back calls; the host's own time per call), the cat chain with
@@ -177,7 +196,8 @@ record
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"},
 ...]}: ``launches`` sums the kernel's launches over the main-path runs of
 [slice], [frames], [analysis], [explicit], [dynamic] (its eager runs),
-[stream] (a) and (b), [sharded], [surfaces], [bench], [scripts] (a
+[stream] (a) and (b), [sharded], [multicard] (its worker processes'
+launches too), [surfaces], [bench], [scripts] (a
 replayed step launches through the graph and is counted at its capture
 and warm-up) and
 the entry points' own runs in [k3] (serving shape), [e7] and [e6] (for K7
@@ -2002,6 +2022,220 @@ def sharded_kernels(cfg, x: torch.Tensor) -> dict:
     return errs
 
 
+# ---- several cards: NCCL between processes, meshes over the cards ---------
+
+MULTICARD_SECONDS = 60.0      # pod_scaling's --seconds in [multicard]
+MULTICARD_TIMEOUT_S = 420     # a worker that has not ended by then fails
+
+
+def card_rows(cards: int) -> list:
+    """The channel rows of the meshes over ``cards`` shards: 1 (1xN), N
+    (Nx1) and, with four or more (an even count), 2 (2x(N/2))."""
+    rows = [1] if cards == 1 else [1, cards]
+    if cards >= 4 and cards % 2 == 0:
+        rows.append(2)
+    return rows
+
+
+def multicard_worker(rank: int, world: int, tmp: str) -> None:
+    """One rank of [multicard]: ``pod_scaling`` at MULTICARD_SECONDS on
+    NCCL (a file rendezvous in ``tmp``), then ``run_sharded`` on each route
+    over ``multihost_mesh`` at each row count of ``card_rows(world)``;
+    every K1, frames-kernel and K9 launch of both held against its plain
+    version.
+    Rank 0 writes each z to ``tmp``; every rank writes its counts and
+    checks to ``tmp/rank<r>.json``."""
+    import dsp_audio_project_tpu_torch as pt
+    from dsp_audio_project_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts,
+    )
+    from dsp_audio_project_tpu_torch.parallel import distributed
+    from dsp_audio_project_tpu_torch.scripts import pod_scaling
+
+    checker = LaunchChecker(f"multicard rank {rank}")
+    reset_launch_counts()
+    with checker.on():
+        res = pod_scaling.run(pod_scaling.parse_args([
+            "--coordinator", f"file://{tmp}/rdzv", "--num-processes",
+            str(world), "--process-id", str(rank), "--seconds",
+            str(MULTICARD_SECONDS), "--channel-hosts", "1"]))
+        torch.cuda.synchronize()
+    pod_counts = launch_counts()
+    pod_scaling.report(res)
+    if not res["ok"]:
+        raise RuntimeError(f"[multicard] rank {rank}: pod_scaling's gates "
+                           "failed")
+    cfg = pt.PipelineConfig(
+        src=pt.SRCConfig(L=160, M=147), eq=pt.EQConfig.from_gains(GAINS),
+        kernels=pt.KernelConfig(src_fast=True, eq_fast=True),
+    )
+    xs = make_batch(int(SECONDS * FS))
+    runs = []
+    for mc in card_rows(world):
+        mesh = distributed.multihost_mesh(mc)
+        for route, kw, needed in SHARD_ROUTES:
+            with checker.on():
+                (z, _, _, _), counts = run_counted(
+                    lambda: pt.run_sharded(xs, FS, cfg, mesh, **kw))
+            # This rank's one shard launches each kernel of its route once.
+            require(f"multicard rank {rank} {route} {mc}x{world // mc}",
+                    counts, needed)
+            runs.append(counts)
+            if rank == 0:
+                np.save(f"{tmp}/z_{route}_{mc}x{world // mc}.npy",
+                        z.cpu().numpy())
+    with open(f"{tmp}/rank{rank}.json", "w") as fh:
+        json.dump({"pod": {k: v for k, v in res.items() if k != "z"},
+                   "counts": add_runs([pod_counts] + runs),
+                   "errs": checker.errs, "held": checker.held,
+                   "by_card": checker.by_card}, fh)
+    torch.distributed.destroy_process_group()
+
+
+def run_workers(cards: int, tmp: str) -> list:
+    """Start one ``multicard_worker`` a card, all together; wait for every
+    one (killing all on a timeout); returns their outputs, raising unless
+    each exited 0."""
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--multicard-worker", str(r), str(cards),
+         tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(cards)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MULTICARD_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"[multicard] rank {r} exited "
+                               f"{p.returncode}:\n{out[-4000:]}")
+    return outs
+
+
+def multicard_gate(tag: str, want: list, z_one: torch.Tensor,
+                   z: torch.Tensor) -> None:
+    """z >= 60 dB against the oracle and >= 110 dB against the one-shot z
+    of [slice], on every row."""
+    n_out = z_one.shape[-1]
+    if tuple(z.shape) != (BATCH, n_out) or not bool(torch.isfinite(z).all()):
+        raise RuntimeError(f"[{tag}] z {tuple(z.shape)} or non-finite")
+    gate(tag, want, z, None, None)
+    inv = min(snr_db(z_one[i], z[i].to(z_one.device)) for i in range(BATCH))
+    log(f"[{tag}] z vs forward_cat's z: min {inv:.1f} dB (gate 110)")
+    if not inv >= 110.0:
+        raise RuntimeError(f"[{tag}] below the invariance gate")
+
+
+def phase_multicard(cfg, x: torch.Tensor, xs: np.ndarray, want: list,
+                    z_one: torch.Tensor):
+    """[multicard]: one process a card on NCCL (``multicard_worker``),
+    then, with two cards or more, ``run_sharded`` and the stream on meshes
+    over the cards held in this process.  Every launch of K1, the frames
+    kernel and K9 in both is held against its plain version.  Returns
+    (counts, {tag: max abs err})."""
+    import tempfile
+
+    import dsp_audio_project_tpu_torch as pt
+
+    cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        outs = run_workers(cards, tmp)
+        log("[multicard] rank 0's pod_scaling, every launch held against "
+            "its plain version (its times carry the checks: the script's "
+            "own runs give the numbers):")
+        for line in outs[0].splitlines():
+            log(f"[multicard] {line}")
+        ranks = []
+        for r in range(cards):
+            with open(f"{tmp}/rank{r}.json") as fh:
+                ranks.append(json.load(fh))
+        for mc in card_rows(cards):
+            for route, _, _ in SHARD_ROUTES:
+                tag = f"multicard nccl {route} {mc}x{cards // mc}"
+                z = torch.as_tensor(np.load(
+                    f"{tmp}/z_{route}_{mc}x{cards // mc}.npy"))
+                multicard_gate(tag, want, z_one, z)
+    total = add_runs([r["counts"] for r in ranks])
+    errs = {k: max(r["errs"][k] for r in ranks) for k in ("k1", "k3", "k9")}
+    held = {k: sum(r["held"][k] for r in ranks) for k in ("k1", "k3", "k9")}
+    by_card: dict = {}
+    for r in ranks:
+        for card, n in r["by_card"].items():
+            by_card[card] = by_card.get(card, 0) + n
+    if any(by_card.get(str(card), 0) == 0 for card in range(cards)):
+        raise RuntimeError(f"[multicard] a card held no launch: {by_card}")
+    log(f"[multicard] NCCL, {cards} process(es) (one a card): pod_scaling "
+        f"at {BATCH} x {MULTICARD_SECONDS:.0f} s and run_sharded on "
+        f"{len(SHARD_ROUTES)} routes x {len(card_rows(cards))} mesh(es) in "
+        f"{time.perf_counter() - t0:.1f} s; launches {total}; held against "
+        f"plain: {held} (by card {by_card}), max abs err {errs}")
+
+    if cards < 2:
+        log("[multicard] the meshes across cards in one process (1xN, Nx1, "
+            "2x(N/2): run_sharded on each route and the stream) need two "
+            f"cards; this host has {cards}: not run")
+        return total, errs
+    checker = LaunchChecker("multicard")
+    n = xs.shape[-1]
+    chunks = stream_chunks(n, (1, 4409, 66150), size=FS)
+    half = len(chunks) // 2
+    cut = sum(chunks[:half])
+    runs = []
+    for mc in card_rows(cards):
+        mb = cards // mc
+        mesh = pt.build_mesh(pt.MeshConfig(channel_devices=mc,
+                                           block_devices=mb))
+        for route, kw, needed in SHARD_ROUTES:
+            tag = f"multicard {route} {mc}x{mb} over {cards} cards"
+            with checker.on():
+                (z, _, _, _), counts = run_counted(
+                    lambda: pt.run_sharded(x, FS, cfg, mesh, **kw))
+            require(tag, counts, needed, at_least=mc * mb)
+            runs.append(counts)
+            multicard_gate(tag, want, z_one, z)
+        for name, kw, needed in SHARD_STREAM_ROUTES:
+            tag = f"multicard stream {name} {mc}x{mb}"
+            with checker.on():
+                sp = pt.ShardedStreamProcessor(cfg, FS, mesh, BATCH, **kw)
+                z, counts = run_counted(
+                    lambda: stream_through(sp, xs, chunks))
+                require(tag, counts, needed, at_least=mc * mb)
+                runs.append(counts)
+                if sp.captures != 0:
+                    raise RuntimeError(f"[{tag}] a mesh over several cards "
+                                       "steps eagerly; it captured")
+                stream_gate(f"{name} {mc}x{mb} over {cards} cards (FL "
+                            f"{sp._fl}, {sp._frames_done // sp._F_sup} "
+                            "eager steps)", z_one, z, tag="multicard")
+                sp1 = pt.ShardedStreamProcessor(cfg, FS, mesh, BATCH, **kw)
+                part1, counts = run_counted(lambda: stream_through(
+                    sp1, xs[:, :cut], chunks[:half], flush=False))
+                runs.append(counts)
+                sp2 = pt.ShardedStreamProcessor.resume(
+                    cfg, mesh, BATCH, sp1.state_bytes(), **kw)
+                rest, counts = run_counted(lambda: stream_through(
+                    sp2, xs[:, cut:], chunks[half:]))
+                runs.append(counts)
+            if not np.array_equal(np.concatenate([part1, rest], 1), z):
+                raise RuntimeError(f"[{tag}] the resumed stream differs")
+            log(f"[multicard] stream {name} {mc}x{mb}: a checkpoint after "
+                f"{cut} samples resumed equal bit for bit")
+    checker.report(f"meshes over {cards} cards")
+    off_zero = sum(n for card, n in checker.by_card.items() if card != 0)
+    log(f"[multicard] launches held on cards other than cuda:0: {off_zero} "
+        f"(by card {dict(checker.by_card)})")
+    if not off_zero:
+        raise RuntimeError("[multicard] no launch on another card was held")
+    for k in errs:
+        errs[k] = max(errs[k], checker.errs[k])
+    return add_runs([total] + runs), errs
+
+
 def device_ms(fn, calls: int = 3) -> float:
     """Device kernel time per call of fn (torch.profiler over ``calls``
     calls after one warm-up call, ``utils/deviceprof``)."""
@@ -2485,6 +2719,7 @@ class LaunchChecker:
         self.errs = {"k1": 0.0, "k3": 0.0, "k9": 0.0}
         self.seen: set = set()
         self.held = {"k1": 0, "k3": 0, "k9": 0}
+        self.by_card: dict = {}      # held launches by the card's index
         self.worst_db = {"k1": math.inf, "k3": math.inf, "k9": math.inf}
         self.every = True
 
@@ -2497,11 +2732,13 @@ class LaunchChecker:
         return True
 
     def _hold(self, row: str, what: str, *pairs) -> None:
-        """One launch: each (kernel output, plain output) pair."""
+        """One launch: each (kernel output, plain output) pair.  A pair
+        that is all zeros (a stream's flush step past the signal's end on
+        some shard) has no SNR: it must be equal bit for bit."""
         for got, ref in pairs:
-            snr = snr_db(ref, got)
             err = float((got - ref).abs().max())
             top = float(ref.abs().max())
+            snr = snr_db(ref, got) if top > 0.0 else math.inf
             if not (got.shape == ref.shape and snr > 120.0
                     and err <= 1e-5 * top):
                 raise RuntimeError(
@@ -2511,6 +2748,8 @@ class LaunchChecker:
             self.errs[row] = max(self.errs[row], err)
             self.worst_db[row] = min(self.worst_db[row], snr)
         self.held[row] += 1
+        card = pairs[0][0].device.index
+        self.by_card[card] = self.by_card.get(card, 0) + 1
 
     @contextlib.contextmanager
     def on(self, every: bool = True):
@@ -2729,11 +2968,13 @@ def main() -> None:
         cfg, xs[0], pipe(x[:1], FS).output[0])
     stream_counts = phase_stream_sharded(cfg, xs, z_one)
     sharded_counts, sharded_errs = phase_sharded(cfg, x, xs, want, z_one)
+    multicard_counts, multicard_errs = phase_multicard(cfg, x, xs, want,
+                                                       z_one)
     del z_one
     surfaces_counts = phase_surfaces(xs, smi)
     bench_counts, bench_errs = phase_bench()
     scripts_counts, scripts_errs = phase_scripts()
-    for errs in (sharded_errs, bench_errs, scripts_errs):
+    for errs in (sharded_errs, multicard_errs, bench_errs, scripts_errs):
         for tag, err in errs.items():
             k = {"k1": k1, "k3": k3, "k9": k9}[tag]
             k["max_abs_err"] = max(k["max_abs_err"], err)
@@ -2741,8 +2982,8 @@ def main() -> None:
         k = {"k1": k1, "k3": k3, "k9": k9}[tag]
         k["max_abs_err"] = max(k["max_abs_err"], err)
     runs += [e7_counts, e6_counts, k3_counts, dyn_counts, stream_one_counts,
-             stream_counts, sharded_counts, surfaces_counts, bench_counts,
-             scripts_counts]
+             stream_counts, sharded_counts, multicard_counts,
+             surfaces_counts, bench_counts, scripts_counts]
     launches = add_runs(runs)
 
     chains = {
@@ -2866,4 +3107,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multicard-worker"]:
+        multicard_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

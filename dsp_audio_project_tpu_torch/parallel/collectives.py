@@ -12,8 +12,11 @@ channel row c with one of two backends:
 * ``GroupBlockAxis``: one shard a rank (``distributed.multihost_mesh``);
   point-to-point through ``dist.batch_isend_irecv`` (every rank posts the
   ops that match its neighbours', an edge rank none for the neighbour it
-  lacks) and ``dist.all_gather`` in the row's process group.  A gloo group
-  takes CPU tensors and an NCCL group CUDA ones; the other pairing raises.
+  lacks) and ``dist.all_gather`` in the row's process group.  With two
+  block shards or more every rank of the row joins each batch (an edge
+  rank with one op, the others with two), as NCCL asks of a group's first
+  P2P batch; a row of one shard posts none.  A gloo group takes CPU
+  tensors and an NCCL group CUDA ones; the other pairing raises.
 
 Both take and return the row's local shards as a list in block order
 (``blocks``): all nb of them locally, the rank's one in a group.

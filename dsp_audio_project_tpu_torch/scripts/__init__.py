@@ -7,11 +7,14 @@
   ``torch.fft.rfft`` at the large spectrogram sizes;
 * ``stream_sweep``: the sharded stream's super-step size against the
   one-shot chain;
-* ``dyn_pipeline``: the steady, serial and pipelined dynamic-serving loops.
+* ``dyn_pipeline``: the steady, serial and pipelined dynamic-serving loops;
+* ``pod_scaling``: the sharded fused chain over every card, one process a
+  card (``torchrun``, NCCL) or one process over them all, its scaling
+  efficiency against a single-card time taken in the same run.
 
 Counterparts of the repo's ``scripts/`` of those names.  The JAX package's
 TPU probes (``mosaic_capability``, ``layout_probe``, ``mxu_issue_probe``,
 ``split_ab``, ``cat_ab``, ``flat_vs_frames``) and ``sharded_real_chip`` have
 none: ``chip_smoke.py`` [time] and [sharded] answer their questions on the
-card.  ``pod_scaling`` waits for several cards.
+card.
 """

@@ -28,6 +28,7 @@ from .profiling import tensors
 
 SPIN_CYCLES = 100_000_000    # the spin of measure_device: ~50 ms at ~2 GHz
 DEVICE_PASSES = 5            # measure_device's passes; the median is kept
+SPIN_HEADROOM = 4            # the spin lasts at least 4x the host's enqueue
 
 
 def _require_card() -> None:
@@ -132,15 +133,26 @@ def measure_batched_differential(
     return best
 
 
-def _spin_seconds() -> float:
-    """CUDA-event seconds of one ``torch.cuda._sleep(SPIN_CYCLES)``."""
+def _spin_seconds(cycles: int) -> float:
+    """CUDA-event seconds of one ``torch.cuda._sleep(cycles)``."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda._sleep(cycles)
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / 1e3
+
+
+def spin_cycles(host_s: float, spin_s: float,
+                cycles: int = SPIN_CYCLES) -> int:
+    """Cycles of the spin that hides ``host_s`` of host enqueue: ``cycles``
+    (which took ``spin_s`` on the card), scaled up where needed so that the
+    spin lasts SPIN_HEADROOM times the host's time."""
+    need = SPIN_HEADROOM * host_s
+    if need <= spin_s:
+        return cycles
+    return int(cycles * need / spin_s) + 1
 
 
 def measure_device(fn: Callable, *args, calls: int = 10) -> float:
@@ -150,19 +162,29 @@ def measure_device(fn: Callable, *args, calls: int = 10) -> float:
     Each pass enqueues a spin kernel (``torch.cuda._sleep``), then the
     start event, the calls and the end event; the device reaches the start
     event with all of them queued, so the time between the events is the
-    device's: the kernels and the gaps between them.  ``fn`` must not wait
-    for the device: a pass whose enqueue took half the spin or more (a
-    call that synchronized, or a host slower than that) raises.
+    device's: the kernels and the gaps between them.  The spin is at least
+    SPIN_CYCLES and lasts SPIN_HEADROOM times the host's enqueue of
+    ``calls`` calls, timed once after the warm-up (``spin_cycles``): a
+    function with many small launches, or a slow host, gets a longer spin.
+    ``fn`` must not wait for the device: a pass whose enqueue took half the
+    spin or more (a call that synchronized, which waits out any spin, or a
+    host slower than that) raises.
     """
     _require_card()
     _check_on_card(fn(*args))
     torch.cuda.synchronize()
-    spin_s = _spin_seconds()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    probe_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = spin_cycles(probe_s, _spin_seconds(SPIN_CYCLES))
+    spin_s = _spin_seconds(cycles)
     per_pass = []
     for _ in range(DEVICE_PASSES):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(cycles)
         t0 = time.perf_counter()
         start.record()
         for _ in range(calls):

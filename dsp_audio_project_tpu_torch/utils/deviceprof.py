@@ -13,8 +13,9 @@ fills.  ``stage_spans`` lists the user annotations apart.
 The total is the sum of the device rows.  The JAX version takes the
 longest XLA program for one call and sums programs for a span; the port
 has no outer program, so both sum the kernels.  Work on several streams at
-once is summed, not overlapped.  A profile with no device row raises: a
-call that ran on the card shows its kernels.
+once is summed, not overlapped; ``by_device`` splits the rows by card (a
+call over several cards of one process).  A profile with no device row
+raises: a call that ran on the card shows its kernels.
 
 On an H100 (torch 2.11, CUDA 12.8) the profiler loses kernel records at
 the edges of a short session, now and then every one of them: a session
@@ -29,7 +30,8 @@ device time and does not wait for the host,
 from __future__ import annotations
 
 import time
-from typing import Callable, Iterable, List, NamedTuple, Tuple
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, \
+    Tuple
 
 import torch
 
@@ -42,26 +44,45 @@ class DeviceProfile(NamedTuple):
     total_ms: float                       # sum of the device rows
     ops: List[Tuple[str, float]]          # (name, ms), the top rows
     spans: List[Tuple[str, float]]        # (trace_stage name, device ms)
+    # {device index: [(name, ms)]}, every device row of each card
+    by_device: Dict[int, List[Tuple[str, float]]]
 
 
 def _device_us(evt) -> float:
-    return getattr(evt, "self_device_time_total",
-                   getattr(evt, "self_cuda_time_total", 0.0))
+    us = getattr(evt, "self_device_time_total", None)
+    return us if us is not None else getattr(evt, "self_cuda_time_total", 0.0)
 
 
 def _is_annotation(evt) -> bool:
     return bool(getattr(evt, "is_user_annotation", False))
 
 
+def _is_device_work(evt) -> bool:
+    return (_device_us(evt) > 0 and evt.self_cpu_time_total == 0
+            and not evt.key.startswith("ProfilerStep")
+            and not _is_annotation(evt))
+
+
 def device_rows(events: Iterable) -> List[Tuple[str, float, int]]:
     """(name, device µs, count) of each device-work row of a
     ``key_averages()`` list, longest first (see the module note)."""
     rows = [(evt.key, _device_us(evt), evt.count) for evt in events
-            if _device_us(evt) > 0 and evt.self_cpu_time_total == 0
-            and not evt.key.startswith("ProfilerStep")
-            and not _is_annotation(evt)]
+            if _is_device_work(evt)]
     rows.sort(key=lambda r: -r[1])
     return rows
+
+
+def rows_by_device(events: Iterable) -> Dict[int, List[Tuple[str, float]]]:
+    """{device index: [(name, device ms)]}, longest first, of the device
+    work among single profiler events (``prof.events()``, each kernel or
+    copy with its card), by the rule of ``device_rows``."""
+    acc: Dict[int, Dict[str, float]] = {}
+    for evt in events:
+        if _is_device_work(evt):
+            card = acc.setdefault(evt.device_index, {})
+            card[evt.key] = card.get(evt.key, 0.0) + _device_us(evt) / 1e3
+    return {idx: sorted(rows.items(), key=lambda kv: -kv[1])
+            for idx, rows in acc.items()}
 
 
 def stage_spans(events: Iterable) -> List[Tuple[str, float]]:
@@ -77,10 +98,12 @@ def stage_spans(events: Iterable) -> List[Tuple[str, float]]:
 
 
 def profile_device_span(thunk: Callable[[], object],
-                        top: int = 20) -> DeviceProfile:
+                        top: Optional[int] = 20) -> DeviceProfile:
     """Run ``thunk()`` under the profiler and return the device time of
-    everything it ran: (total ms, [(kernel, ms)] of the ``top`` rows,
-    [(stage span, ms)])."""
+    everything it ran: (total ms, [(kernel, ms)] of the ``top`` rows (None:
+    all), [(stage span, ms)], each card's rows).  The profiler synchronises
+    the current card; a thunk that runs on other cards synchronises them
+    itself."""
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
@@ -101,6 +124,7 @@ def profile_device_span(thunk: Callable[[], object],
         total_ms=sum(r[1] for r in rows) / 1e3,
         ops=[(name, us / 1e3) for name, us, _ in rows[:top]],
         spans=[(name, us / 1e3) for name, us in stage_spans(events)],
+        by_device=rows_by_device(prof.events()),
     )
 
 

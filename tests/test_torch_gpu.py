@@ -38,7 +38,12 @@ Sharding: ``run_sharded`` (plain, fused, cat) on virtual 1x4 and 2x2
 meshes of cuda:0 vs the same mesh on the CPU and vs the card at 1x1 (>
 110 dB), a launch a shard; the sharded stream on those meshes: one
 capture covering every shard, the replays bit for bit against the eager
-step and a resumed checkpoint, > 110 dB against the CPU.  The surfaces:
+step and a resumed checkpoint, > 110 dB against the CPU.  Several cards
+(each test decides for itself and skips with fewer than two, or four for
+2x2): ``run_sharded`` on each route at 1xN, Nx1 and 2x2 over real cards,
+>= 110 dB against the card at 1x1; the stream there (eager steps) >= 110
+dB against the one-shot z, resumed bit for bit; ``pod_scaling`` in one
+process a card on NCCL (world = device_count, also one).  The surfaces:
 the native codec built into ``_build/`` and equal to the numpy codec; the
 CLI one-shot at 160/147 on the card (the frames kernel, K9 and K2
 launched) within 1 LSB of its ``--device cpu`` run, spectra > 110 dB; the
@@ -1074,6 +1079,116 @@ def test_stream_capture_after_a_dropped_processor(cuda):
         sp = sharded(None, "fused frames")
         assert stream(sp, x, STREAM_CHUNKS).tobytes() == want.tobytes()
         assert sp.captures == 1
+
+
+# ---- several cards: meshes over the cards, NCCL between processes ----------
+
+CARD_LAYOUTS = ("1xN", "Nx1", "2x2")
+
+
+def cards_mesh(layout):
+    """A mesh over real cards (decided here, never at import): 1xN or Nx1
+    over every card, 2x2 over four; skips on a host with too few."""
+    cards = torch.cuda.device_count()
+    mc, mb = {"1xN": (1, cards), "Nx1": (cards, 1), "2x2": (2, 2)}[layout]
+    if cards < 2 or mc * mb > cards:
+        pytest.skip(f"{layout} across cards needs more cards than the "
+                    f"{cards} here")
+    return mc, mb, pt.build_mesh(
+        pt.MeshConfig(channel_devices=mc, block_devices=mb),
+        devices=[torch.device("cuda", i) for i in range(mc * mb)])
+
+
+def sync_cards():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+@pytest.mark.parametrize("layout", CARD_LAYOUTS)
+@pytest.mark.parametrize("route", list(SHARD_ROUTES))
+def test_run_sharded_across_cards(cuda, route, layout):
+    """run_sharded with each shard on its own card: a launch a shard, z on
+    shard (0, 0)'s card, >= 110 dB against the card at 1x1."""
+    mc, mb, mesh = cards_mesh(layout)
+    kw, needed = SHARD_ROUTES[route]
+    x = make_x(4, 5 * FS, seed=43)
+    cfg = stream_cfg()
+    reset_launch_counts()
+    z = pt.run_sharded(torch.as_tensor(x, device=cuda), FS, cfg, mesh,
+                       **kw)[0]
+    sync_cards()
+    counts = launch_counts()
+    assert all(counts[k] >= mc * mb for k in needed), counts
+    assert z.device == torch.device("cuda", 0)
+    z1 = pt.run_sharded(torch.as_tensor(x, device=cuda), FS, cfg,
+                        card_mesh(1, 1), **kw)[0]
+    z, z1 = z.cpu().numpy(), z1.cpu().numpy()
+    assert z.shape == z1.shape
+    assert min(snr_db(z1[c], z[c]) for c in range(4)) >= 110
+
+
+@pytest.mark.parametrize("layout", CARD_LAYOUTS)
+@pytest.mark.parametrize("route", ["fused frames", "cat", "dynamic cat"])
+def test_sharded_stream_across_cards(cuda, route, layout):
+    """The stream with each shard on its own card (eager steps, no
+    capture): >= 110 dB against the one-shot z (DYN_GAINS[0] is GAINS
+    band for band), and a checkpoint resumed bit for bit."""
+    mc, mb, mesh = cards_mesh(layout)
+    x = make_x(4, 20 * FS, seed=44)
+    chunks = [1, 4409, 300000, 66150, 400000, 111440]      # 882,000 = 20 s
+    kw = STREAM_ROUTES[route][0]
+    reset_launch_counts()
+    sp = pt.ShardedStreamProcessor(stream_cfg(), FS, mesh, 4, **kw)
+    z = stream(sp, x, chunks)
+    counts = launch_counts()
+    assert all(counts[k] >= mc * mb for k in STREAM_ROUTES[route][1])
+    assert sp.captures == 0 and sp._frames_done // sp._F_sup >= 2
+    want = pt.run_sharded(torch.as_tensor(x, device=cuda), FS, stream_cfg(),
+                          card_mesh(1, 1), cat=True)[0].cpu().numpy()
+    assert z.shape == want.shape
+    assert min(snr_db(want[c], z[c]) for c in range(4)) >= 110
+    sp = pt.ShardedStreamProcessor(stream_cfg(), FS, mesh, 4, **kw)
+    part1 = sp.process(x[:, :700000])
+    assert sp._frames_done >= sp._F_sup
+    sp2 = pt.ShardedStreamProcessor.resume(stream_cfg(), mesh, 4,
+                                           sp.state_bytes(), **kw)
+    got = np.concatenate([part1, stream(sp2, x[:, 700000:], [182000])], 1)
+    np.testing.assert_array_equal(z, got)
+
+
+def test_pod_scaling_on_nccl(cuda, tmp_path):
+    """pod_scaling in one process a card (world = device_count) on NCCL
+    through a file rendezvous: initialize, multihost_mesh, the halo and
+    carry collectives, gather_grid; every rank exits 0 and rank 0's gates
+    pass."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    world = torch.cuda.device_count()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "dsp_audio_project_tpu_torch.scripts."
+         "pod_scaling", "--coordinator", f"file://{tmp_path}/rdzv",
+         "--num-processes", str(world), "--process-id", str(r),
+         "--channel-hosts", "1", "--seconds", "20", "--reps", "2"],
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    assert f"{world} process(es) (nccl)" in outs[0]
+    assert f"'block': {world}" in outs[0] and "gates passed" in outs[0]
 
 
 # ---- the surfaces: the native codec, the CLI, the graph stages -------------

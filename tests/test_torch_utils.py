@@ -10,7 +10,7 @@ spans of its chain, on the CPU.
   the JAX package's names;
 * ``deviceprof.device_rows`` on synthetic ``key_averages`` rows: a kernel
   counts; a CPU op, a ``ProfilerStep`` row, a zero row and a user
-  annotation do not;
+  annotation do not; ``rows_by_device`` splits single events by card;
 * ``utils/benchmarking`` and ``deviceprof`` raise without a card and for a
   CPU function.
 """
@@ -169,6 +169,46 @@ def test_device_rows_filter():
     old = types.SimpleNamespace(key="k", count=2, self_cpu_time_total=0.0,
                                 self_cuda_time_total=7.0)
     assert deviceprof.device_rows([old]) == [("k", 7.0, 2)]
+
+
+def test_rows_by_device():
+    """Single events of two cards: each card's kernels and peer copies by
+    name, summed and in ms; a CPU op, a step span and an annotation on the
+    device timeline count on no card."""
+    def evt(key, card, **kw):
+        ev = _row(key, **kw)
+        ev.device_index = card
+        return ev
+
+    events = [
+        evt("fir_tf32_kernel<2, true>", 0, dev=250.0),
+        evt("fir_tf32_kernel<2, true>", 0, dev=250.0),
+        evt("Memcpy PtoP (Device -> Device)", 1, dev=50.0),
+        evt("fir_tf32_kernel<2, true>", 1, dev=260.0),
+        evt("aten::mm", -1, cpu=12.0, total=40.0),
+        evt("ProfilerStep#1", 0, dev=900.0),
+        evt("src_eq_cat", 1, dev=300.0, annotation=True),
+    ]
+    assert deviceprof.rows_by_device(events) == {
+        0: [("fir_tf32_kernel<2, true>", 0.5)],
+        1: [("fir_tf32_kernel<2, true>", 0.26),
+            ("Memcpy PtoP (Device -> Device)", 0.05)]}
+
+
+@pytest.mark.parametrize("host_ms,spin_ms,want", [
+    (1.0, 50.0, 100_000_000),      # the host hides behind the base spin
+    (12.5, 50.0, 100_000_000),     # 4x the host is the spin itself
+    (26.8, 50.5, 212_277_228),     # 10 butterfly calls on a slow host
+])
+def test_spin_cycles_hide_the_host(host_ms, spin_ms, want):
+    """measure_device's spin: SPIN_CYCLES where it lasts 4x the host's
+    enqueue, else scaled so that it does; never shorter."""
+    cycles = benchmarking.spin_cycles(host_ms / 1e3, spin_ms / 1e3)
+    assert cycles == want
+    assert cycles >= benchmarking.SPIN_CYCLES
+    spin_s = spin_ms / 1e3 * cycles / benchmarking.SPIN_CYCLES
+    assert spin_s >= benchmarking.SPIN_HEADROOM * host_ms / 1e3
+    assert host_ms / 1e3 < 0.5 * spin_s
 
 
 def test_timing_raises_without_a_card():
