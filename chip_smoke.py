@@ -6,7 +6,8 @@ the host).
     python3 chip_smoke.py --profile    # also torch.profiler tables by kernel
 
 (``python3 chip_smoke.py --multicard-worker RANK WORLD DIR`` is one rank of
-the [multicard] phase, which starts those processes itself.)
+the [multicard] phase, and ``--capture-fail-worker`` [jit]'s capture
+failure; the phases start those processes themselves.)
 
 Drives the port (dsp_audio_project_tpu_torch) at its real size — 44.1 ->
 48 kHz SRC (L/M = 160/147) + the 5-band EQ + |rfft| spectra of x, y and z
@@ -86,7 +87,23 @@ Phases, one or more lines each:
      gain vectors copied into the buffer, each output equal to the eager
      call bit for bit (or >= 130 dB, and the run says so) and >= 60 dB
      against the oracle, with no host design between the replays;
- 14. [stream] streaming (streaming.py): (a) ``StreamProcessor`` on one
+ 14. [jit] the compiled forwards (``AudioPipeline.jit_forward_*``, all 11)
+     on a pipeline of their own at 8 x 60 s: each first call (a warm-up
+     and a CUDA-graph capture) counted, its warm-up's K1, frames-kernel,
+     K9 and K2 launches held against their plain versions
+     (``LaunchChecker``); each result equal to its eager forward bit for
+     bit, z (and y and the spectra) >= 60 dB against the oracle (the
+     dynamic ones against the oracle for DYN_GAINS[0]); a second call on
+     another batch (and DYN_GAINS[1]) equal to the eager forward and the
+     first result unchanged by it; on ``jit_forward_cat_spectra`` a third
+     call with both results held (its outputs copied) and the rate switch
+     44.1 -> 48 -> 44.1 kHz, each replay bit for bit; a forward that
+     synchronizes, in its own process (``--capture-fail-worker``), must
+     raise at its capture on every call and run nothing eagerly; the MB
+     an entry holds and the output copy's cost; then ``[time] jit`` rows
+     (call, back to back, host and device ms a call, each beside the
+     eager forward's);
+ 15. [stream] streaming (streaming.py): (a) ``StreamProcessor`` on one
      row of the serving signal in 100 ms chunks and in a ragged chunking
      with a 1-sample chunk, each counted (the frames kernel, K9), z >= 110
      dB against that row of the one-shot ``pipe(x, fs)``; (b)
@@ -101,7 +118,7 @@ Phases, one or more lines each:
      no re-capture; K1 (num_frames = FL, pad_left = 0), the frames kernel
      (a step's and a 100 ms chunk's span) and K9 (a step's (C, K_loc, G,
      U)) vs plain (> 120 dB), folded into the record's max_abs_err;
- 15. [sharded] sharding (parallel/): ``run_sharded`` on the routes plain
+ 16. [sharded] sharding (parallel/): ``run_sharded`` on the routes plain
      (fused=False), fused and cat over the virtual meshes 1x1, 1x2, 1x4,
      1x8, 2x4 and 8x1 (every shard on the one card), each run counted (the
      frames kernel and K9; cat: K1 and K9), z (and y) >= 60 dB against the
@@ -114,7 +131,7 @@ Phases, one or more lines each:
      FL 1024, fused frames FL 512, dynamic cat), each counted, one capture
      covering every shard, >= 110 dB against the one-shot z, the eager step
      and a mid-stream checkpoint resumed bit for bit;
- 16. [multicard] several cards: one process a card (as many as the host
+ 17. [multicard] several cards: one process a card (as many as the host
      has; on one card, one), joined on NCCL through a file rendezvous in a
      temporary directory, each running ``scripts/pod_scaling`` at 8 x 60 s
      (``initialize``, ``multihost_mesh``, the halo and carry collectives,
@@ -128,7 +145,7 @@ Phases, one or more lines each:
      over the cards held in this process; with one, a line says that those
      were not run.  Every K1, frames-kernel and K9 launch of the phase, on
      every card, is held against its plain version (``LaunchChecker``);
- 17. [surfaces] the surfaces (io/, native/, cli.py, app/, models/graph.py):
+ 18. [surfaces] the surfaces (io/, native/, cli.py, app/, models/graph.py):
      the port's native codec built from native/ into _build/ and loaded;
      an 8-channel 60 s PCM16 WAV of the batch decoded bit for bit equal
      by the native engine and the numpy codec, ``encode_pcm16`` bit for
@@ -142,7 +159,7 @@ Phases, one or more lines each:
      frames kernel) and >= 60 dB against the stagewise oracle; [time]
      surfaces (host clock, median of 5): the decodes, the int16 encodes,
      and main() split into load, chain, export, spectra JSON, report;
- 18. [bench] the port's bench (``dsp_audio_project_tpu_torch.bench``,
+ 19. [bench] the port's bench (``dsp_audio_project_tpu_torch.bench``,
      ``bench.run``) at its full width, counted (K1, K9, K2, the frames
      kernel): the headline chains at 8 x 60 s, the accuracy gate over the
      8 signals, the dynamic section, the 240 s stream at C = 8 and FL =
@@ -151,19 +168,20 @@ Phases, one or more lines each:
      keys and positive finite numbers; then one stream step at the bench's
      FL 12288 with K1, the frames kernel and K9 held against their plain
      versions at each geometry it launches (> 120 dB);
- 19. [scripts] the chip scripts (``dsp_audio_project_tpu_torch.scripts``),
+ 20. [scripts] the chip scripts (``dsp_audio_project_tpu_torch.scripts``),
      each counted: ``config_matrix`` (all 79 configurations at 1 s a
-     signal, each >= 60 dB through the call and, where supported, the cat
-     forward), ``rfft_sweep`` at its default sizes (K7 vs float64 numpy),
+     signal, each >= 60 dB through the call and, where supported, the
+     compiled cat forward ``jit_forward_cat()``, whose warm-up launches
+     are eager), ``rfft_sweep`` at its default sizes (K7 vs float64 numpy),
      ``stream_sweep`` at FL 2048 and 8192, ``dyn_pipeline`` at 3 cycles
      (its graph expand bit for bit against the eager one), and
      ``graft_entry.entry()``'s program once (z >= 60 dB against the oracle);
-     K1, the frames kernel and K9 held against their plain versions at
-     every launch of config_matrix and graft_entry and at each geometry of
-     stream_sweep (its steps checked first, outside the timed passes) and
-     dyn_pipeline (> 120 dB, max abs err <= 1e-5 * max|ref|; the errors
-     go into the record's max_abs_err);
- 20. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs;
+     K1, the frames kernel, K9 and K2 held against their plain versions
+     at every eager launch of config_matrix and graft_entry and at each
+     geometry of stream_sweep (its steps checked first, outside the timed
+     passes) and dyn_pipeline (> 120 dB, K2 > 110 dB, max abs err <= 1e-5
+     * max|ref|; the errors go into the record's max_abs_err);
+ 21. [time] CUDA-event timings (median of 20 runs after 20 warm-up runs;
      the plain E2 versions, an 8192-step host loop, median of 2 after 2):
      the chains and analysis paths per call (per call, and per call of 20
      back-to-back calls; the host's own time per call), the cat chain with
@@ -196,7 +214,8 @@ record
 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"},
 ...]}: ``launches`` sums the kernel's launches over the main-path runs of
 [slice], [frames], [analysis], [explicit], [dynamic] (its eager runs),
-[stream] (a) and (b), [sharded], [multicard] (its worker processes'
+[jit] (the first two calls of each compiled forward: their warm-ups and
+captures), [stream] (a) and (b), [sharded], [multicard] (its worker processes'
 launches too), [surfaces], [bench], [scripts] (a
 replayed step launches through the graph and is counted at its capture
 and warm-up) and
@@ -1518,6 +1537,287 @@ def time_dynamic(pipe, x: torch.Tensor, dyn: dict) -> dict:
             **{k: v for k, v in chains.items() if "replay" not in k}}
 
 
+# ---- the compiled forwards (AudioPipeline.jit_forward_*) -------------------
+
+# (method, the eager forward its graph captures, the kernels its capture's
+# warm-up must launch)
+JIT_METHODS = (
+    ("jit_forward", "_forward", ("fir_frames_kernel",)),
+    ("jit_forward_frames", "forward_frames",
+     ("fir_frames_kernel", "eq_finish")),
+    ("jit_forward_frames_spectra", "forward_frames_spectra",
+     ("fir_frames_kernel", "eq_finish", "rfft_four_step_magnitude")),
+    ("jit_forward_spectra", "forward_spectra",
+     ("fir_frames_kernel", "rfft_four_step_magnitude")),
+    ("jit_forward_flat", "forward_flat", ("fir_frames_kernel",)),
+    ("jit_forward_flat_spectra", "forward_flat_spectra",
+     ("fir_frames_kernel", "rfft_four_step_magnitude")),
+    ("jit_forward_cat", "forward_cat",
+     ("polyphase_fir_class_rect_cat", "eq_finish")),
+    ("jit_forward_cat_spectra", "forward_cat_spectra",
+     ("polyphase_fir_class_rect_cat", "eq_finish",
+      "rfft_four_step_magnitude")),
+    ("jit_forward_frames_dynamic", "forward_frames_dynamic",
+     ("fir_frames_kernel", "eq_finish")),
+    ("jit_forward_frames_dynamic_ops", "forward_frames_dynamic_ops",
+     ("fir_frames_kernel", "eq_finish")),
+    ("jit_forward_cat_dynamic_ops", "forward_cat_dynamic_ops",
+     ("polyphase_fir_class_rect_cat", "eq_finish")),
+)
+JIT_RATE_B = 48000          # the rate switch's other input rate
+JIT_FAIL_TIMEOUT_S = 300    # the capture-failure worker's limit
+
+
+def out_leaves(out) -> list:
+    """The tensors of a forward's result or arguments, in order."""
+    from dsp_audio_project_tpu_torch.utils.profiling import tensors
+
+    return list(tensors(out))
+
+
+def identical(what: str, got, want) -> None:
+    """Every tensor of ``got`` equal to ``want``'s bit for bit."""
+    got, want = out_leaves(got), out_leaves(want)
+    if len(got) != len(want) or not all(
+            a.shape == b.shape and torch.equal(a, b)
+            for a, b in zip(got, want)):
+        raise RuntimeError(f"[jit] {what}: not equal bit for bit")
+
+
+def jit_args(pipe, method: str, x: torch.Tensor, k: int) -> tuple:
+    """A call's arguments: x, then for the dynamic methods DYN_GAINS[k]
+    (a (6,) tensor on the card, or operators from the host builder and
+    their cat table), then fs."""
+    if method == "jit_forward_frames_dynamic":
+        return x, torch.tensor(DYN_GAINS[k], device=x.device), FS
+    if method.endswith("_dynamic_ops"):
+        ops = pipe.dynamic_eq_operators(np.asarray(DYN_GAINS[k]), FS,
+                                        x.shape[-1], builder="host")
+        if "cat" in method:
+            return x, ops, pipe.dynamic_cat_tables(ops), FS
+        return x, ops, FS
+    return x, FS
+
+
+def jit_outputs(method: str, out, n_out: int):
+    """(z, y or None, spectra or None) of a forward's result, z and y flat
+    (BATCH, n_out)."""
+    leaves = out_leaves(out)
+    mags = leaves[-3:] if "spectra" in method else None
+    sig = leaves[:-3] if mags is not None else leaves
+
+    def flat(t):
+        return t.reshape(t.shape[0], -1)[:, :n_out] if t.dim() == 3 else t
+
+    return flat(sig[0]), flat(sig[1]) if len(sig) > 1 else None, mags
+
+
+def dropping(f):
+    """``f`` with its result dropped: a list of results kept by a caller
+    would hold a compiled forward's graph slots."""
+    def call():
+        f()
+    return call
+
+
+def entry_mb(fn, args) -> tuple:
+    """(fn(*args), MB the card holds after it that it did not before):
+    one entry's graph pool, static inputs and kept tables when the call
+    makes a new entry, the caching allocator's free blocks released on
+    both sides."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out, (torch.cuda.memory_reserved() - before) / 1e6
+
+
+def capture_fail_worker() -> None:
+    """``--capture-fail-worker``: a compiled forward over a forward that
+    synchronizes (which no CUDA graph can capture) must raise on every
+    call, return nothing and capture nothing, while its eager forward runs
+    once a warm-up pass (twice a call); then a fresh pipeline's compiled
+    forward must equal its eager forward bit for bit.  In its own process,
+    so that a failed capture cannot touch the run's card state."""
+    import dsp_audio_project_tpu_torch as pt
+
+    cfg = pt.PipelineConfig(
+        src=pt.SRCConfig(L=160, M=147), eq=pt.EQConfig.from_gains(GAINS),
+        kernels=pt.KernelConfig(src_fast=True, eq_fast=True))
+    pipe = pt.AudioPipeline(cfg, device=DEVICE)
+    real, runs = pipe.forward_cat, []
+
+    def syncing(x, fs):
+        runs.append(1)
+        z = real(x, fs)
+        torch.cuda.synchronize()
+        return z
+
+    pipe.forward_cat = syncing
+    fn = pipe.jit_forward_cat()
+    x = torch.as_tensor(make_batch(FS)[:2], device=DEVICE)
+    for call in range(2):
+        try:
+            fn(x, FS)
+        except RuntimeError as err:
+            if "capture" not in str(err):
+                raise
+            print(f"[jit] a capturing call over a syncing forward raised: "
+                  f"{str(err).splitlines()[0][:160]}", flush=True)
+        else:
+            raise RuntimeError("a failed capture returned a result")
+    # Two warm-up passes and the capture's one pass a call, nothing more.
+    if fn.captures or len(runs) != 6:
+        raise RuntimeError(f"captures {fn.captures}, eager runs {len(runs)}")
+    other = pt.AudioPipeline(cfg, device=DEVICE)
+    identical("after a failed capture", other.jit_forward_cat()(x, FS),
+              other.forward_cat(x, FS))
+    print("CAPTURE_FAIL_OK", flush=True)
+
+
+def phase_jit(cfg, x: torch.Tensor, want: list, smi: str) -> tuple:
+    """[jit]: the compiled forwards (``AudioPipeline.jit_forward_*``) at
+    the serving shape, on a pipeline of their own.  Each method's first
+    call is counted and its capture's warm-up held against the plain
+    versions (``LaunchChecker``: K1, the frames kernel, K9, K2); its
+    result equals the eager forward bit for bit and its z (and y, and the
+    spectra) >= 60 dB against the oracle (the dynamic ones against the
+    oracle for their gains); a second call on another batch (and gains)
+    takes a second graph slot, equals the eager forward, and leaves the
+    first result as it was.  Then, on ``jit_forward_cat_spectra``: a third
+    call with both results held copies its outputs; the rate switch 44.1
+    -> 48 -> 44.1 kHz; the entries' sizes; a capture failure, in a process
+    of its own.  Last, [time] rows for each callable beside its eager
+    forward.  Returns (counts, the checker's max abs errs)."""
+    import dsp_audio_project_tpu_torch as pt
+
+    checker = LaunchChecker("jit")
+    pipe = pt.AudioPipeline(cfg, device=DEVICE)
+    n_out = cfg.src.output_length(x.shape[-1])
+    x2 = torch.flip(x, dims=[0]).contiguous()   # another batch
+    z_dyn = dyn_oracle(pipe, want, DYN_GAINS[0])
+    runs, entries = [], {}
+    for method, eager_name, needed in JIT_METHODS:
+        fn = getattr(pipe, method)()
+        if getattr(pipe, method)() is not fn:
+            raise RuntimeError(f"[jit] {method}() is not cached")
+        eager = getattr(pipe, eager_name)
+        a1, a2 = jit_args(pipe, method, x, 0), jit_args(pipe, method, x2, 1)
+        t0 = time.perf_counter()
+        with checker.on():
+            (r1, mb), counts = run_counted(lambda: entry_mb(fn, a1))
+        first_s = time.perf_counter() - t0
+        require(f"jit {method}", counts, needed)
+        runs.append(counts)
+        identical(f"{method} vs {eager_name}", r1, eager(*a1))
+        z, y, mags = jit_outputs(method, r1, n_out)
+        if z.shape != (BATCH, n_out) or not bool(torch.isfinite(z).all()):
+            raise RuntimeError(f"[jit] {method}: z {tuple(z.shape)}")
+        if "dynamic" in method:
+            gate(f"jit {method}", [(w[0], zd, w[2])
+                                   for w, zd in zip(want, z_dyn)], z, y, None)
+        else:
+            gate(f"jit {method}", want, z, y, mags)
+        kept = [t.clone() for t in out_leaves(r1)]
+        with checker.on():
+            r2, counts2 = run_counted(lambda: fn(*a2))
+        runs.append(counts2)
+        identical(f"{method} on a second batch", r2, eager(*a2))
+        identical(f"{method}'s first result after a second call", r1, kept)
+        copied = sum(t.numel() * t.element_size()
+                     for t in out_leaves(a1[1:-1])) / 1e6
+        log(f"[jit] {method}: equal to {eager_name} bit for bit on two "
+            f"batches, the first result unchanged by the second call; "
+            f"captures {fn.captures}, first call {first_s:.2f} s, "
+            f"{mb:.1f} MB an entry"
+            + (f", {copied:.2f} MB of operators copied a call" if copied
+               else ""))
+        entries[method] = (fn, eager, a1, mb)
+        del r1, r2, kept, z, y, mags
+    checker.report("the captures' warm-ups")
+
+    fn, eager, a1, _ = entries["jit_forward_cat_spectra"]
+    a2 = (x2, FS)
+    held = [fn(*a1), fn(*a2)]
+    r3 = fn(*a1)
+    if fn.copies != 1 or fn.captures != 3:
+        raise RuntimeError(f"[jit] with both slots held: captures "
+                           f"{fn.captures}, copies {fn.copies}")
+    want_a = eager(*a1)
+    identical("a copied result", r3, want_a)
+    identical("the held results", held, [want_a, eager(*a2)])
+    outs = out_leaves(r3)
+    out_mb = sum(t.numel() * t.element_size() for t in outs) / 1e6
+    copy_ms = time_ms(lambda: [t.clone() for t in outs])
+    held_ms = time_ms(lambda: fn(*a1))
+    del held, r3, outs
+    free_ms = time_ms(lambda: fn(*a1))
+    log(f"[jit] output ownership (jit_forward_cat_spectra): a slot is "
+        f"replayed only when no tensor shares its outputs, at no copy; with "
+        f"both slots held a call replays a third graph and clones its "
+        f"{out_mb:.1f} MB of outputs: {copy_ms * 1e3:.1f} us a call "
+        f"(CUDA events), call {held_ms:.4f} ms held against {free_ms:.4f} "
+        f"ms free; copies {fn.copies}")
+
+    rb, mb_b = entry_mb(fn, (x, JIT_RATE_B))
+    identical(f"rate {JIT_RATE_B}", rb, eager(x, JIT_RATE_B))
+    del rb
+    junk = [torch.full_like(t, math.nan) for t in pipe.buffers()
+            for _ in range(2)]
+    identical(f"rate {FS} after {JIT_RATE_B}", fn(*a1), want_a)
+    del junk, want_a
+    if fn._cache_size() != 2:
+        raise RuntimeError(f"[jit] entries {fn._cache_size()}, not 2")
+    log(f"[jit] rate switch {FS} -> {JIT_RATE_B} -> {FS} Hz: each replay "
+        f"equal to the eager forward at its rate bit for bit, the {FS} Hz "
+        f"entry reading the tables it keeps after the module's were "
+        f"replaced (and NaN fills allocated); the {JIT_RATE_B} Hz entry "
+        f"{mb_b:.1f} MB")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, __file__, "--capture-fail-worker"],
+                          capture_output=True, text=True,
+                          timeout=JIT_FAIL_TIMEOUT_S)
+    lines = (proc.stdout + proc.stderr).strip().splitlines()
+    if proc.returncode != 0 or "CAPTURE_FAIL_OK" not in proc.stdout:
+        raise RuntimeError("[jit] the capture-failure worker failed:\n"
+                           + "\n".join(lines[-30:]))
+    for line in proc.stdout.splitlines():
+        if line.startswith("[jit]"):
+            log(line)
+    log(f"[jit] a failed capture raised on each call and ran nothing "
+        f"eagerly after its warm-up; a fresh pipeline then replayed bit for "
+        f"bit ({time.perf_counter() - t0:.1f} s, own process)")
+
+    captures = sum(e[0].captures for e in entries.values())
+    log(f"[jit] {len(entries)} compiled forwards, {captures} captures, "
+        f"{sum(e[3] for e in entries.values()):.1f} MB for their first "
+        f"entries; card memory reserved "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB")
+    log(f"[time] card: {smi}")
+    for method, (fn, eager, args, mb) in entries.items():
+        rows = {}
+        for name, f in (("eager", lambda: eager(*args)),
+                        ("compiled", lambda: fn(*args))):
+            # Each result dropped before the next call, as a server does.
+            rows[name] = (time_ms(f), back_to_back_ms(f), host_ms(f)[0],
+                          device_ms(dropping(f)))
+        (c, b, h, d), (ce, be, he, de) = rows["compiled"], rows["eager"]
+        log(f"[time] jit {method}, batch {BATCH} x {SECONDS:.0f} s: call "
+            f"{c:.4f} ms (eager {ce:.4f}) -> {c / BATCH:.4f} ms per signal; "
+            f"back to back {b:.4f} (eager {be:.4f}); host {h:.4f} (eager "
+            f"{he:.4f}); device {d:.4f} (eager {de:.4f}) ms a call; "
+            f"{mb:.1f} MB an entry")
+    counts = add_runs(runs)
+    entries.clear()
+    del pipe, fn, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, checker.errs
+
+
 # ---- streaming (streaming.py) ----------------------------------------------
 
 STREAM_CHUNK = FS // 10          # (a): 100 ms chunks
@@ -2705,22 +3005,25 @@ def add_runs(runs: list) -> dict:
 
 
 class LaunchChecker:
-    """Holds K1, the frames kernel and K9 against their plain versions at
-    the launches a path makes.  Inside ``on()``, each launch made outside a
-    CUDA-graph capture (a captured launch replays a geometry its warm-up
-    ran eagerly) is followed by its plain version on the same inputs, under
-    ``compare``'s bounds (> 120 dB and max abs err <= 1e-5 * max|ref|):
-    every launch, or with ``every=False`` only the first of each geometry
-    this checker has not seen.  The comparisons launch no kernel, so the
-    counts are untouched.  ``errs``: max abs err by record row."""
+    """Holds K1, the frames kernel, K9 and K2 against their plain versions
+    at the launches a path makes.  Inside ``on()``, each launch made
+    outside a CUDA-graph capture (a captured launch replays a geometry its
+    warm-up ran eagerly) is followed by its plain version on the same
+    inputs, under ``compare``'s bounds (> 120 dB, K2 > 110 dB, and max abs
+    err <= 1e-5 * max|ref|): every launch, or with ``every=False`` only the
+    first of each geometry this checker has not seen.  The comparisons
+    launch no kernel, so the counts are untouched.  ``errs``: max abs err
+    by record row."""
+
+    ROWS = ("k1", "k3", "k9", "k2")
 
     def __init__(self, tag: str):
         self.tag = tag
-        self.errs = {"k1": 0.0, "k3": 0.0, "k9": 0.0}
+        self.errs = dict.fromkeys(self.ROWS, 0.0)
         self.seen: set = set()
-        self.held = {"k1": 0, "k3": 0, "k9": 0}
+        self.held = dict.fromkeys(self.ROWS, 0)
         self.by_card: dict = {}      # held launches by the card's index
-        self.worst_db = {"k1": math.inf, "k3": math.inf, "k9": math.inf}
+        self.worst_db = dict.fromkeys(self.ROWS, math.inf)
         self.every = True
 
     def _fresh(self, key) -> bool:
@@ -2731,7 +3034,8 @@ class LaunchChecker:
         self.seen.add(key)
         return True
 
-    def _hold(self, row: str, what: str, *pairs) -> None:
+    def _hold(self, row: str, what: str, *pairs,
+              bound_db: float = 120.0) -> None:
         """One launch: each (kernel output, plain output) pair.  A pair
         that is all zeros (a stream's flush step past the signal's end on
         some shard) has no SNR: it must be equal bit for bit."""
@@ -2739,12 +3043,13 @@ class LaunchChecker:
             err = float((got - ref).abs().max())
             top = float(ref.abs().max())
             snr = snr_db(ref, got) if top > 0.0 else math.inf
-            if not (got.shape == ref.shape and snr > 120.0
+            if not (got.shape == ref.shape and snr > bound_db
                     and err <= 1e-5 * top):
                 raise RuntimeError(
                     f"[{self.tag}] {what} {tuple(got.shape)} disagrees with "
-                    f"its plain version: snr {snr:.1f} dB (bound 120), max "
-                    f"abs err {err:.3e} (bound 1e-05 * {top:.3e})")
+                    f"its plain version: snr {snr:.1f} dB (bound "
+                    f"{bound_db:.0f}), max abs err {err:.3e} (bound 1e-05 * "
+                    f"{top:.3e})")
             self.errs[row] = max(self.errs[row], err)
             self.worst_db[row] = min(self.worst_db[row], snr)
         self.held[row] += 1
@@ -2759,7 +3064,9 @@ class LaunchChecker:
             "dsp_audio_project_tpu_torch.kernels.fir_class")
         ef = importlib.import_module(
             "dsp_audio_project_tpu_torch.kernels.eq_finish")
-        real = (fc._launch, fc._launch_frames, ef._launch)
+        rf = importlib.import_module(
+            "dsp_audio_project_tpu_torch.kernels.rfft")
+        real = (fc._launch, fc._launch_frames, ef._launch, rf._launch)
 
         def k1(x, g2, y0, inj, n, f_pad, W, V, P, s, pad_left):
             real[0](x, g2, y0, inj, n, f_pad, W, V, P, s, pad_left)
@@ -2782,19 +3089,29 @@ class LaunchChecker:
                 self._hold("k9", f"K9 at U={U} d={d}",
                            (z, ef.eq_finish_plain(y0, st, gout)))
 
+        def k2(name, x, tw, un, out, n):
+            real[3](name, x, tw, un, out, n)
+            if self._fresh(("k2", name, tuple(x.shape))):
+                mag = name == "rfft_mag_launch"
+                ref = rf.rfft_four_step_plain(x, tw, un, mag)
+                self._hold("k2", f"K2 {name} at N={n}",
+                           (out, ref if mag else torch.view_as_real(ref)),
+                           bound_db=110.0)
+
         self.every = every
-        fc._launch, fc._launch_frames, ef._launch = k1, k3, k9
+        fc._launch, fc._launch_frames, ef._launch, rf._launch = (k1, k3, k9,
+                                                                 k2)
         try:
             yield self
         finally:
-            fc._launch, fc._launch_frames, ef._launch = real
+            fc._launch, fc._launch_frames, ef._launch, rf._launch = real
 
     def report(self, what: str) -> None:
         log(f"[{self.tag}] {what}: launches held against their plain "
             "versions (bound 120 dB, max abs err <= 1e-5 * max|ref|): " +
             ", ".join(f"{row} {self.held[row]} (worst {self.worst_db[row]:.1f}"
                       f" dB, max abs err {self.errs[row]:.3e})"
-                      for row in ("k1", "k3", "k9")))
+                      for row in self.ROWS))
 
 
 def stream_step_checked(cfg, fl: int, checker: LaunchChecker) -> None:
@@ -2964,6 +3281,7 @@ def main() -> None:
     del y_flat
     e6, e6_counts = phase_e6(x)
     dyn_counts, dyn_checks, dyn = phase_dynamic(pipe, x, want)
+    jit_counts, jit_errs = phase_jit(cfg, x, want, smi)
     stream_one_counts, stream_lat = phase_stream_one(
         cfg, xs[0], pipe(x[:1], FS).output[0])
     stream_counts = phase_stream_sharded(cfg, xs, z_one)
@@ -2974,16 +3292,17 @@ def main() -> None:
     surfaces_counts = phase_surfaces(xs, smi)
     bench_counts, bench_errs = phase_bench()
     scripts_counts, scripts_errs = phase_scripts()
-    for errs in (sharded_errs, multicard_errs, bench_errs, scripts_errs):
+    for errs in (jit_errs, sharded_errs, multicard_errs, bench_errs,
+                 scripts_errs):
         for tag, err in errs.items():
-            k = {"k1": k1, "k3": k3, "k9": k9}[tag]
+            k = {"k1": k1, "k3": k3, "k9": k9, "k2": k2}[tag]
             k["max_abs_err"] = max(k["max_abs_err"], err)
     for tag, err in phase_stream_kernels(cfg, xs).items():
-        k = {"k1": k1, "k3": k3, "k9": k9}[tag]
+        k = {"k1": k1, "k3": k3, "k9": k9, "k2": k2}[tag]
         k["max_abs_err"] = max(k["max_abs_err"], err)
-    runs += [e7_counts, e6_counts, k3_counts, dyn_counts, stream_one_counts,
-             stream_counts, sharded_counts, multicard_counts,
-             surfaces_counts, bench_counts, scripts_counts]
+    runs += [e7_counts, e6_counts, k3_counts, dyn_counts, jit_counts,
+             stream_one_counts, stream_counts, sharded_counts,
+             multicard_counts, surfaces_counts, bench_counts, scripts_counts]
     launches = add_runs(runs)
 
     chains = {
@@ -3109,5 +3428,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multicard-worker"]:
         multicard_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--capture-fail-worker"]:
+        capture_fail_worker()
         sys.exit(0)
     sys.exit(main())

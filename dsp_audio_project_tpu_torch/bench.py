@@ -20,23 +20,34 @@ Everything else goes to stderr, first the card's name and power limit as
 them.  Sections:
 
 * headline: the route ``bench.py`` takes (cat where ``cat_supported``, else
-  frames, else flat); ``value`` is 60 s of input over the ms per signal of
-  the full chain (``forward_cat_spectra``: K1, the state solve, K9, K2 on
-  x, y and z), ``extra.src_eq_ms_per_60s_signal`` that of ``forward_cat``.
+  frames, else flat), through the compiled forwards it times; ``value`` is
+  60 s of input over the ms per signal of the full chain
+  (``jit_forward_cat_spectra()``: K1, the state solve, K9, K2 on x, y and
+  z, one CUDA graph replayed), ``extra.src_eq_ms_per_60s_signal`` that of
+  ``jit_forward_cat()``.  A replay runs no host code, so a timed call
+  opens no stage span and the span readout is empty.
   A time is a call's: CUDA events around back-to-back calls on distinct
-  batches (``utils/benchmarking.measure``), the host's enqueue included,
-  since on this card the host sets the call time.  Beside it: the device
-  time (``utils/deviceprof``), the host time of one call and the HBM
-  roofline share of x in, z and the spectra out;
+  batches (``utils/benchmarking.measure``), the host's enqueue included
+  (the inputs' copy into the graph's buffers and one replay).  Each
+  result is dropped before the next call, so every timed call replays the
+  entry's first graph slot, captured at the first of two warm-up calls
+  before the timing; the run raises if a timed pass captured or copied.
+  Beside it:
+  the device time (``utils/deviceprof``), the host time of one call and
+  the HBM roofline share of x in, z and the spectra out;
 * accuracy (``check_outputs``): the timed pipeline's full chain on the
   first of the timed batches, z and the three spectra of every signal
   >= 60 dB against the port's ``oracle.pipeline_oracle(engine="fast")``
   and ``spectrum_oracle`` (``check_accuracy`` runs it on its own);
-* dynamic gains: the frames and cat dynamic chains on prebuilt operators,
+* dynamic gains: the frames and cat dynamic chains on prebuilt operators
+  (``jit_forward_frames_dynamic_ops()``, ``jit_forward_cat_dynamic_ops()``),
   the cat table's rebuild, the host and device builders, the host
   builder's parts (host numpy, upload, expand), the serial and pipelined
   cycles computed from them and the pipelined cycle measured, each z
-  >= 60 dB against the oracle for its gains; a call that does not wait
+  >= 60 dB against the oracle for its gains.  The dynamic chains' device
+  ms include the compiled forward's copies into its graph's buffers: x
+  (84.7 MB at 8 x 60 s) and the operators (and the cat table) on every
+  call, which the eager forwards did not make; a call that does not wait
   for the host (the table rebuild, the device builder, the expand) is
   timed by ``utils/benchmarking.measure_device``, the rest by the
   profiler;
@@ -148,13 +159,16 @@ class Route(NamedTuple):
 
 
 def route(pipe: AudioPipeline, n: int) -> Route:
-    """``bench.py``'s path ladder: cat, else frames, else flat."""
+    """``bench.py``'s path ladder: cat, else frames, else flat, each
+    through the compiled forwards ``bench.py`` times (``jit_forward_*``:
+    one CUDA graph a shape on the card, replayed)."""
     if pipe.cat_supported(n, FS):
-        return Route("cat", pipe.forward_cat, pipe.forward_cat_spectra)
+        return Route("cat", pipe.jit_forward_cat(),
+                     pipe.jit_forward_cat_spectra())
     if pipe.frames_supported(n):
-        return Route("frames", pipe.forward_frames,
-                     pipe.forward_frames_spectra)
-    return Route("flat", pipe.forward, pipe.forward_spectra)
+        return Route("frames", pipe.jit_forward_frames(),
+                     pipe.jit_forward_frames_spectra())
+    return Route("flat", pipe.jit_forward(), pipe.jit_forward_spectra())
 
 
 def full_outputs(rt: Route, res, n_out: int):
@@ -257,6 +271,14 @@ def device_batches(x: np.ndarray, count: int, device, batch: int = BATCH,
             for _ in range(count)]
 
 
+def each(fn: Callable, inputs) -> None:
+    """``fn(*args)`` for each argument tuple of ``inputs``, each result
+    dropped before the next call, as a serving loop drops it (a compiled
+    forward then replays its first graph slot, with no output copy)."""
+    for args in inputs:
+        fn(*args)
+
+
 def host_ms(fn: Callable, inputs) -> float:
     """Median host-clock ms until one call returns, the device idle
     before it: the host's enqueue time of a call."""
@@ -275,7 +297,7 @@ def time_call(fn: Callable, batches: list) -> dict:
     median of PASSES back-to-back queues over every batch), the host's
     enqueue, the device's (profiler)."""
     call = measure(fn, batches, warmup_inputs=batches[:2], passes=PASSES)
-    dev = profile_device_span(lambda: [fn(*a) for a in batches])
+    dev = profile_device_span(lambda: each(fn, batches))
     return {"call": call * 1e3, "host": host_ms(fn, batches),
             "device": dev.total_ms / len(batches), "profile": dev}
 
@@ -285,7 +307,18 @@ def bench_headline(pipe: AudioPipeline, rt: Route, batches: list,
     """ms per call of the src+eq and the full chain, and their report."""
     out = {}
     for what, fn in (("src+eq", rt.src_eq), ("full chain", rt.full)):
-        t = out[what] = time_call(lambda v, fn=fn: fn(v, FS), batches)
+        def call(v, fn=fn):
+            return fn(v, FS)
+
+        each(call, batches[:2])
+        torch.cuda.synchronize()
+        graphs = (fn.captures, fn.copies)
+        t = out[what] = time_call(call, batches)
+        if (fn.captures, fn.copies) != graphs:
+            raise RuntimeError(
+                f"{what}: (captures, copies) went from {graphs} to "
+                f"{(fn.captures, fn.copies)} while timed; a timed call "
+                "held a graph's outputs")
         log(f"{what} ({rt.name}, batch {BATCH} x {SECONDS:.0f} s): "
             f"{t['call'] / BATCH:.4f} ms per signal a call (CUDA events, "
             f"median of {PASSES} queues of {len(batches)} calls), device "
@@ -343,18 +376,18 @@ def bench_dynamic(pipe: AudioPipeline, batches: list, acc: dict,
         eq = EQConfig.from_gains(dict(zip(names, map(float, gains))))
         return equalize_oracle(y_want0, fs_out, eq)
 
-    fwd = pipe.forward_frames_dynamic_ops
+    fwd = pipe.jit_forward_frames_dynamic_ops()
     dyn_ops = pipe.dynamic_eq_operators(gains_dev, FS, n)   # device builder
     t = profile_device_span(
-        lambda: [fwd(v, dyn_ops, FS) for (v,) in batches])
+        lambda: each(fwd, [(v, dyn_ops, FS) for (v,) in batches]))
     dt_dyn = t.total_ms / len(batches) / BATCH
     log(f"dynamic-gains frames chain (prebuilt ops): {dt_dyn:.4f} ms device "
         f"per signal -> {n / dt_dyn * 1e3 / 1e6:.1f} M samples/s/chip")
     if pipe.cat_supported(n, FS):
         tabs = pipe.dynamic_cat_tables(dyn_ops)
-        fwd_dc = pipe.forward_cat_dynamic_ops
-        t = profile_device_span(
-            lambda: [fwd_dc(v, dyn_ops, tabs, FS) for (v,) in batches])
+        fwd_dc = pipe.jit_forward_cat_dynamic_ops()
+        t = profile_device_span(lambda: each(
+            fwd_dc, [(v, dyn_ops, tabs, FS) for (v,) in batches]))
         dt_dc = t.total_ms / len(batches) / BATCH
         log(f"dynamic-gains cat chain (device-built table): {dt_dc:.4f} ms "
             f"device per signal -> {n / dt_dc * 1e3 / 1e6:.1f} M "
@@ -436,10 +469,11 @@ def bench_dynamic(pipe: AudioPipeline, batches: list, acc: dict,
     def pipelined():
         o = ops0
         for k in range(PIPE_CYCLES):
-            z, _ = fwd(*xb, o, FS)
+            # The result is dropped at once, so every batch replays the
+            # one graph slot the warm-up captured.
+            zs.append(fwd(*xb, o, FS)[0][0].clone())
             tabs_k = host_dyn_tables(gains_k[k + 1], fs_out, cfg.eq,
                                      U, G, K)
-            zs.append(z[0].clone())
             torch.cuda.synchronize()
             o = _expand_dyn_operators(*upload_dyn_tables(tabs_k, dev))
         torch.cuda.synchronize()

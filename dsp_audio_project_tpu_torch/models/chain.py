@@ -27,10 +27,18 @@ The forwards and the kernels they run:
   ``config.spectrum.nfft`` points: K2 (``kernels/rfft.py``) up to 8192,
   K7 and K8 (``kernels/rfft_two_pass.py``) from 16384 to 1048576.
 
+The compiled forwards ``jit_forward[_frames|_cat|_flat|...]()`` return
+the JAX package's ``jax.jit`` callables' counterparts, cached on the
+module: ``utils/device.CompiledForward`` over the eager forward of the
+same name, one CUDA graph per (input shapes, fs) on the card, replayed
+with one host call; on the CPU they run the eager forward.
+
 The forwards mark their stages with ``utils/profiling.trace_stage`` spans
 under the JAX package's names: ``src`` and ``eq`` (``_forward``),
 ``src_frames`` and ``eq_frames``, ``src_eq_cat`` (K1 of both cat
-forwards), ``src_flat`` and ``eq_flat``.  A span is host-side only.
+forwards), ``src_flat`` and ``eq_flat``.  A span is host-side only, so a
+compiled forward opens them at its warm-up and capture and never at a
+replay.
 
 The design tables of the cat and frames paths (the polyphase operator G,
 G2 = G @ w_cat, the EQ block operators at block 128*P / unroll P and the
@@ -89,7 +97,7 @@ from ..ops.spectrum import (
     spectrum_window_rows,
 )
 from ..ops.src import make_plan, resample, resample_rows
-from ..utils.device import default_device
+from ..utils.device import CompiledForward, default_device
 from ..utils.profiling import trace_stage
 
 GROUPS_PER_BLOCK = 128   # EQ groups (frames) per block: block = 128 * P
@@ -144,6 +152,7 @@ class AudioPipeline(nn.Module):
         self._state_corr: np.ndarray | None = None   # float64 A^block
         self._fs: int | None = None
         self._K: int | None = None
+        self._compiled: Dict[str, CompiledForward] = {}
 
     @property
     def device(self) -> torch.device:
@@ -490,6 +499,87 @@ class AudioPipeline(nn.Module):
         y0, inj = polyphase_fir_class_rect_cat(
             x, plan, cfg.src.output_length(n), None, g2=tables.g2)
         return equalize_dynamic_cat_ops(y0, inj, ops)
+
+    # ---- compiled forwards: the JAX package's jit_forward_* ---------------
+    #
+    # Each returns a CompiledForward over the eager forward of the same
+    # name (utils/device.py), cached on the module, so a second call
+    # returns the same object and its entries: one CUDA graph per (input
+    # shapes, fs), fs static as in the JAX methods' static_argnums.  On
+    # the card a call copies its inputs into the entry's static buffers
+    # and replays; a capture that fails raises.  Each graph keeps the
+    # module's buffers of its capture, so a later rate or shape, which
+    # installs new tables, leaves the tables it reads alive.  On the CPU a
+    # call runs the eager forward.
+
+    def _jit(self, forward: str) -> CompiledForward:
+        fn = self._compiled.get(forward)
+        if fn is None:
+            fn = self._compiled[forward] = CompiledForward(
+                lambda *args: getattr(self, forward)(*args), self.device,
+                f"jit {forward}", keep=lambda: tuple(self.buffers()))
+        return fn
+
+    def jit_forward(self) -> CompiledForward:
+        """Compiled flat (x, fs) -> (z, y): ``_forward`` (the frames kernel,
+        or E1 with fir_path='pallas'; ``equalize``, or E2a/E2b with
+        iir_path='pallas')."""
+        return self._jit("_forward")
+
+    def jit_forward_frames(self) -> CompiledForward:
+        """Compiled (x, fs) -> (z_frames, y_frames): ``forward_frames``
+        (the frames kernel, the EQ, K9); see ``frames_supported``."""
+        return self._jit("forward_frames")
+
+    def jit_forward_frames_spectra(self) -> CompiledForward:
+        """Compiled (x, fs) -> (z_f, y_f, (mx, my, mz)):
+        ``forward_frames_spectra`` (the frames chain and one K2 launch)."""
+        return self._jit("forward_frames_spectra")
+
+    def jit_forward_spectra(self) -> CompiledForward:
+        """Compiled flat (x, fs) -> (z, y, (mx, my, mz)):
+        ``forward_spectra``."""
+        return self._jit("forward_spectra")
+
+    def jit_forward_flat(self) -> CompiledForward:
+        """Compiled (x, fs) -> (z, y): ``forward_flat`` (K6, the flat EQ);
+        see ``flat_supported``."""
+        return self._jit("forward_flat")
+
+    def jit_forward_flat_spectra(self) -> CompiledForward:
+        """Compiled (x, fs) -> (z, y, (mx, my, mz)):
+        ``forward_flat_spectra``."""
+        return self._jit("forward_flat_spectra")
+
+    def jit_forward_cat(self) -> CompiledForward:
+        """Compiled (x, fs) -> z_frames: ``forward_cat`` (K1, the state
+        solve, K9); see ``cat_supported``."""
+        return self._jit("forward_cat")
+
+    def jit_forward_cat_spectra(self) -> CompiledForward:
+        """Compiled (x, fs) -> (z_frames, (mx, my, mz)):
+        ``forward_cat_spectra``, the serving render (K1, the state solve,
+        K9, K2 on x, y and z)."""
+        return self._jit("forward_cat_spectra")
+
+    def jit_forward_frames_dynamic(self) -> CompiledForward:
+        """Compiled (x, gains_db, fs) -> (z_frames, y_frames):
+        ``forward_frames_dynamic``.  The gains go into a static (6,)
+        float32 buffer and the device builder runs inside the graph, so
+        one capture serves every gain vector (no host design, no sync)."""
+        return self._jit("forward_frames_dynamic")
+
+    def jit_forward_frames_dynamic_ops(self) -> CompiledForward:
+        """Compiled (x, ops, fs) -> (z_frames, y_frames):
+        ``forward_frames_dynamic_ops``.  Each call copies ``ops``
+        (``DynOperators``, field by field) into the entry's own buffers."""
+        return self._jit("forward_frames_dynamic_ops")
+
+    def jit_forward_cat_dynamic_ops(self) -> CompiledForward:
+        """Compiled (x, ops, tables, fs) -> z_frames:
+        ``forward_cat_dynamic_ops``.  Each call copies ``ops`` and
+        ``tables`` (``dynamic_cat_tables``) into the entry's own buffers."""
+        return self._jit("forward_cat_dynamic_ops")
 
     # ---- design tables as buffers ----------------------------------------
 

@@ -7,8 +7,9 @@ Counterpart of the repo's ``scripts/config_matrix.py``: every (L, M) in
 [1, 8]^2 the UI reaches, plus the serving 160/147, with the mixed gain
 vector, and the all-flat and +/-15 dB extreme vectors on a six-pair subset
 and on 160/147: 79 configurations.  Each runs through ``AudioPipeline``'s
-call (``pipe(x, fs)``), and through ``forward_cat`` where
-``cat_supported``; each z must reach >= 60 dB against
+call (``pipe(x, fs)``), and through ``jit_forward_cat()`` (one CUDA graph
+on the card, as the JAX script's ``jax.jit``) where ``cat_supported``;
+each z must reach >= 60 dB against
 ``oracle.pipeline_oracle(engine="fast")``, else the run raises.  The route
 printed is the one the call took, from the pipeline's own rule
 (``AudioPipeline.call_route``): the frames path, or the flat ``_forward``
@@ -84,7 +85,8 @@ def run(seconds: float = 1.0, device=None) -> list:
         q = snr_db(want, z)
         qc = None
         if pipe.cat_supported(n, FS):
-            zc = pipe.forward_cat(x, FS).reshape(-1)[:n_out].cpu().numpy()
+            zc = pipe.jit_forward_cat()(x, FS).reshape(-1)[:n_out]
+            zc = zc.cpu().numpy()
             qc = snr_db(want, zc)
         path = pipe.call_route(n)
         rows.append((L, M, gname, path, q, qc))

@@ -4,8 +4,9 @@
 
 Counterpart of the repo's ``scripts/dyn_pipeline.py`` (default 8 cycles)
 at 8 x 60 s on the serving config.  A cycle is one gain change and one
-batch through ``forward_frames_dynamic_ops`` (the frames kernel, the EQ
-apply, K9):
+batch through ``jit_forward_frames_dynamic_ops()`` (the frames kernel, the
+EQ apply, K9; one CUDA graph, replayed, that copies the operators it is
+given into its own buffers on every call):
 
   steady    - every batch at fixed operators (the per-batch floor);
   serial    - the host builder's numpy tables for gains k, their upload,
@@ -14,12 +15,12 @@ apply, K9):
               it runs, then their upload and the expand.
 
 The expand (the host builder's device half, ``_expand_dyn_operators``) is
-one CUDA graph captured over static table buffers: a gain change copies
-the new host tables into them and replays the graph, where the JAX script
-calls its jitted expand.  Its operators are held bit for bit against the
-eager expand.  Each loop reports its wall ms a cycle (host clock, the
-card synchronized each cycle) and, run again under the profiler
-(``utils/deviceprof``), its device ms a cycle.  Needs the card.
+a ``CompiledForward`` too: a gain change copies the new host tables into
+its graph's buffers and replays it, where the JAX script calls its jitted
+expand.  Its operators are held bit for bit against the eager expand.
+Each loop reports its wall ms a cycle (host clock, the card synchronized
+each cycle) and, run again under the profiler (``utils/deviceprof``),
+its device ms a cycle.  Needs the card.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ from ..models.chain import AudioPipeline
 from ..ops.eq_dynamic import (
     _expand_dyn_operators, host_dyn_tables, upload_dyn_tables,
 )
-from ..utils.device import capture_graph, warm_up
+from ..utils.device import CompiledForward
 from ..utils.deviceprof import profile_device_span
 
 FS = bench.FS
@@ -43,25 +44,6 @@ BATCH = bench.BATCH
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
-
-
-class GraphExpand:
-    """The expand as a replayed CUDA graph over static table buffers."""
-
-    def __init__(self, tabs, device):
-        self.bufs = upload_dyn_tables(tabs, device)
-        warm_up(lambda: _expand_dyn_operators(*self.bufs), device)
-        self.graph, self.ops = capture_graph(
-            lambda: _expand_dyn_operators(*self.bufs))
-
-    def __call__(self, tabs):
-        """The operators of ``tabs`` (host tables): copy, replay."""
-        for buf, a in zip(self.bufs, tabs):
-            if buf is not None:
-                buf.copy_(torch.from_numpy(np.ascontiguousarray(a,
-                                                                np.float32)))
-        self.graph.replay()
-        return self.ops
 
 
 def run(cycles: int = 8) -> dict:
@@ -76,7 +58,7 @@ def run(cycles: int = 8) -> dict:
     v = torch.as_tensor(
         (0.3 * np.random.default_rng(0).standard_normal((BATCH, n))
          ).astype(np.float32), device=dev)
-    fwd = pipe.forward_frames_dynamic_ops
+    fwd = pipe.jit_forward_frames_dynamic_ops()
     names = [nm for nm, _ in cfg.eq.band_centers]
     gain_seq = [
         np.asarray([float(((k * 7 + i * 3) % 31) - 15)
@@ -89,7 +71,13 @@ def run(cycles: int = 8) -> dict:
     def host_phase(g):
         return host_dyn_tables(g, fs_out, cfg.eq, U, G, K)
 
-    expand = GraphExpand(host_phase(gain_seq[0]), dev)
+    # expand(*host tables, fs_out) -> DynOperators; the rate is static.
+    graph_expand = CompiledForward(
+        lambda *a: _expand_dyn_operators(*a[:-1]), dev, "the expand")
+
+    def expand(tabs):
+        return graph_expand(*tabs, fs_out)
+
     last = host_phase(gain_seq[cycles])
     got = expand(last)
     want = _expand_dyn_operators(*upload_dyn_tables(last, dev))
@@ -99,6 +87,7 @@ def run(cycles: int = 8) -> dict:
                                           and not torch.equal(a, b)):
             raise RuntimeError(f"the graph expand's {name} differs from the "
                                "eager expand's")
+    del got
     ops0 = pipe.dynamic_eq_operators(gain_seq[0], FS, n, builder="host")
     fwd(v, ops0, FS)
     torch.cuda.synchronize()
@@ -114,13 +103,15 @@ def run(cycles: int = 8) -> dict:
             fwd(v, expand(host_phase(gain_seq[k])), FS)
             torch.cuda.synchronize()
 
+    ready = {}
+
     def start():
         """The operators of gains 0, ready before a pipelined loop."""
-        expand(host_phase(gain_seq[0]))
+        ready["ops"] = expand(host_phase(gain_seq[0]))
         torch.cuda.synchronize()
 
     def pipelined():
-        ops = expand.ops
+        ops = ready.pop("ops")
         for k in range(cycles):
             fwd(v, ops, FS)                       # enqueued
             th = time.perf_counter()

@@ -393,7 +393,8 @@ class _StepRunner:
         warm_up(lambda: step(self.x_dev[0], self.sigma.clone()), self.device)
         self.graphs, self.z_out = [], []
         for slot in range(2):
-            graph, z = capture_graph(lambda: self._body(step, slot))
+            graph, z = capture_graph(lambda: self._body(step, slot),
+                                     self.device)
             self.graphs.append(graph)
             self.z_out.append(z)
         self.captures += 1

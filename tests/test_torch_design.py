@@ -159,3 +159,26 @@ def test_exports_cover_jax():
 
     assert not set(jpkg.__all__) - set(pt.__all__)
     assert all(hasattr(pt, name) for name in pt.__all__)
+
+
+# Public methods of the JAX classes that the port may lack because they
+# exist only for the TPU, each with its reason.  None so far: the
+# jit_forward_* family is ported as CUDA graphs.
+TPU_ONLY_METHODS: dict = {}
+
+
+@pytest.mark.parametrize("name", ["AudioPipeline", "StreamProcessor",
+                                  "ShardedStreamProcessor"])
+def test_public_methods_cover_jax(name):
+    """Every public method or property of the JAX class has a counterpart
+    of the same name on the port's class, callable where the JAX one is."""
+    import dsp_audio_project_tpu as jpkg
+
+    jcls, tcls = getattr(jpkg, name), getattr(pt, name)
+    public = [m for m in vars(jcls) if not m.startswith("_")
+              and m not in TPU_ONLY_METHODS]
+    assert public
+    missing = [m for m in public if not hasattr(tcls, m)]
+    assert not missing, f"{name} lacks {missing}"
+    for m in public:
+        assert callable(getattr(jcls, m)) == callable(getattr(tcls, m)), m

@@ -54,7 +54,12 @@ reads about its profiled kernel time and refuses a function that syncs;
 span, and 200 one-call profiles of K7 each hold both kernels; the cat chain's
 ``roofline_fraction`` lies in (0, 1.05]; a forward with its spans replays
 from a CUDA graph bit for bit; the bench's correctness section passes at
-8 x 60 s.
+8 x 60 s.  The compiled forwards (``AudioPipeline.jit_forward_*``, the
+explicit route's ``jit_forward`` too): each replay bit for bit against the
+eager forward, held results unchanged by later calls (a second slot, then
+a copy), a released slot replayed without a capture; a rate switch A -> B
+-> A; one entry at K > 512 IIR blocks (the carry scan); a capture that
+fails raises; replayed kernels show in a device profile.
 """
 from __future__ import annotations
 
@@ -92,6 +97,7 @@ from dsp_audio_project_tpu_torch.ops.fft import (
 )
 from dsp_audio_project_tpu_torch.ops.src import make_plan
 from dsp_audio_project_tpu_torch.oracle import snr_db
+from dsp_audio_project_tpu_torch.utils.profiling import tensors
 
 pytestmark = pytest.mark.gpu
 
@@ -1388,3 +1394,221 @@ def test_short_profiles_keep_their_kernels(cuda):
     for _ in range(200):
         prof = profile_device_ops(mag, x)
         assert len(prof.ops) == 2 and prof.total_ms > 0, prof.ops
+
+
+# ---- the compiled forwards (AudioPipeline.jit_forward_*) --------------------
+
+JIT_METHODS = ("jit_forward", "jit_forward_frames",
+               "jit_forward_frames_spectra", "jit_forward_spectra",
+               "jit_forward_flat", "jit_forward_flat_spectra",
+               "jit_forward_cat", "jit_forward_cat_spectra",
+               "jit_forward_frames_dynamic", "jit_forward_frames_dynamic_ops",
+               "jit_forward_cat_dynamic_ops")
+
+
+def jit_cfg(**kernels):
+    return pt.PipelineConfig(
+        src=pt.SRCConfig(L=160, M=147), eq=pt.EQConfig.from_gains(GAINS),
+        kernels=pt.KernelConfig(src_fast=True, eq_fast=True, **kernels))
+
+
+def eager_of(pipe, method):
+    """The eager forward a compiled forward captures."""
+    return getattr(pipe, "_forward" if method == "jit_forward"
+                   else method[len("jit_"):])
+
+
+def jit_args(pipe, method, x, k=0, fs=FS):
+    """The call's arguments: x, then gains (a tensor), or operators built
+    on the host (and their cat table) for gain vector k, then fs."""
+    if method == "jit_forward_frames_dynamic":
+        return x, torch.tensor(DYN_GAINS[k], device=pipe.device), fs
+    if method.endswith("_dynamic_ops"):
+        ops = pipe.dynamic_eq_operators(np.asarray(DYN_GAINS[k]), fs,
+                                        x.shape[-1], builder="host")
+        if method == "jit_forward_cat_dynamic_ops":
+            return x, ops, pipe.dynamic_cat_tables(ops), fs
+        return x, ops, fs
+    return x, fs
+
+
+def out_leaves(out):
+    return list(tensors(out))
+
+
+def assert_bitwise(got, want):
+    got, want = out_leaves(got), out_leaves(want)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("method", list(JIT_METHODS) + ["explicit"])
+def test_compiled_forward_replays_the_eager_forward(cuda, method):
+    """Each compiled forward, captured at its first call: the replay equals
+    the eager forward bit for bit; a held result is unchanged by later
+    calls on other batches (and other gains), which take a second slot and
+    then copy; a released slot is replayed again without a capture; the
+    capture ran the path's kernels."""
+    explicit = method == "explicit"
+    pipe = pt.AudioPipeline(jit_cfg(**({"fir_path": "pallas",
+                                        "iir_path": "pallas"}
+                                       if explicit else {})), device=cuda)
+    method = "jit_forward" if explicit else method
+    fn = getattr(pipe, method)()
+    assert getattr(pipe, method)() is fn
+    eager = eager_of(pipe, method)
+    xs = [torch.as_tensor(make_x(2, FS, seed=40 + k), device=cuda)
+          for k in range(3)]
+    args = [jit_args(pipe, method, x, k % 2) for k, x in enumerate(xs)]
+    reset_launch_counts()
+    r1 = fn(*args[0])
+    counts = launch_counts()
+    if explicit:
+        assert counts["block_end_states"] >= 1 and counts["block_apply"] >= 1
+    elif "cat" in method:
+        assert counts["polyphase_fir_class_rect_cat"] >= 1
+    else:
+        assert counts["fir_frames_kernel"] >= 1
+    if "cat" in method or "frames" in method:
+        assert counts["eq_finish"] >= 1
+    if "spectra" in method:
+        assert counts["rfft_four_step_magnitude"] >= 1
+    assert_bitwise(r1, eager(*args[0]))
+    kept1 = [t.clone() for t in out_leaves(r1)]
+    r2 = fn(*args[1])
+    assert_bitwise(r2, eager(*args[1]))
+    kept2 = [t.clone() for t in out_leaves(r2)]
+    r3 = fn(*args[2])
+    assert_bitwise(r3, eager(*args[2]))
+    assert (fn.captures, fn.copies) == (3, 1)
+    assert_bitwise(r1, kept1)
+    assert_bitwise(r2, kept2)
+    del r1, r2, r3
+    reset_launch_counts()
+    assert_bitwise(fn(*args[0]), kept1)
+    assert fn.captures == 3 and fn._cache_size() == 1
+    assert not any(launch_counts().values())
+
+
+@pytest.mark.parametrize("method", ["jit_forward_cat_spectra",
+                                    "jit_forward_frames_spectra"])
+def test_compiled_forward_across_rates(cuda, method):
+    """Capture at 44.1 kHz, call at 48 kHz (which installs that rate's
+    tables on the module), replay at 44.1 kHz: each result equals the eager
+    forward at its rate bit for bit, though the first rate's tables left
+    the module (the entry holds them; memory freed would have been
+    overwritten by the NaN fills).  numpy input is taken."""
+    pipe = pt.AudioPipeline(jit_cfg(), device=cuda)
+    fn, eager = getattr(pipe, method)(), eager_of(pipe, method)
+    xa = make_x(2, FS, seed=51)
+    xb = torch.as_tensor(make_x(2, 48000, seed=52), device=cuda)
+    want_a = eager(xa, FS)
+    assert_bitwise(fn(xa, FS), want_a)
+    old = {name: t.data_ptr() for name, t in pipe.named_buffers()}
+    assert_bitwise(fn(xb, 48000), eager(xb, 48000))
+    assert pipe.G.data_ptr() != old["G"]
+    junk = [torch.full_like(t, float("nan")) for t in pipe.buffers()
+            for _ in range(2)]
+    assert_bitwise(fn(xa, FS), want_a)
+    assert fn._cache_size() == 2 and fn.captures == 2
+    del junk
+
+
+def test_compiled_forward_runs_the_carry_scan(cuda):
+    """One entry above _CARRY_ALLPAIRS_MAX = 512 blocks (2 x 600 s at
+    44.1 kHz: the cat path's log-depth carry scan) is captured and replays
+    bit for bit against the eager forward."""
+    from dsp_audio_project_tpu_torch.ops.eq import _CARRY_ALLPAIRS_MAX
+
+    pipe = pt.AudioPipeline(jit_cfg(), device=cuda)
+    n = 600 * FS
+    x = torch.as_tensor(make_x(2, n, seed=53), device=cuda)
+    assert pipe.dynamic_eq_geometry(FS, n)[2] > _CARRY_ALLPAIRS_MAX
+    fn = pipe.jit_forward_cat()
+    got = fn(x, FS)
+    assert torch.equal(got, pipe.forward_cat(x, FS))
+
+
+def test_compiled_forward_on_another_card(cuda):
+    """A pipeline on the last card, built and called while cuda:0 is
+    current and after a capture on cuda:0: its graph records that card's
+    work, so the replays of two different batches each equal the eager
+    forward bit for bit (a capture on cuda:0's stream would have run the
+    kernels eagerly and recorded nothing, and every replay would return
+    the first batch's outputs)."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip(f"needs two cards, {cards} here")
+    first = pt.AudioPipeline(jit_cfg(), device=cuda)
+    x0 = torch.as_tensor(make_x(2, FS, seed=56), device=cuda)
+    assert torch.equal(first.jit_forward_cat()(x0, FS),
+                       first.forward_cat(x0, FS))
+    last = torch.device("cuda", cards - 1)
+    assert torch.cuda.current_device() == 0
+    pipe = pt.AudioPipeline(jit_cfg(), device=last)
+    fn = pipe.jit_forward_cat_spectra()
+    for seed in (57, 58):
+        x = torch.as_tensor(make_x(2, FS, seed=seed), device=last)
+        got = fn(x, FS)
+        assert all(t.device == last for t in out_leaves(got))
+        assert_bitwise(got, pipe.forward_cat_spectra(x, FS))
+        del got
+    assert fn.captures == 1 and torch.cuda.current_device() == 0
+
+
+def test_compiled_forward_raises_when_the_capture_fails(cuda):
+    """A forward that synchronizes cannot be captured: the call raises, no
+    eager result comes back, every later call raises again, and the card
+    is still usable."""
+    pipe = pt.AudioPipeline(jit_cfg(), device=cuda)
+    real = pipe.forward_cat
+
+    def syncing(x, fs):
+        z = real(x, fs)
+        torch.cuda.synchronize()
+        return z
+
+    pipe.forward_cat = syncing
+    fn = pipe.jit_forward_cat()
+    x = torch.as_tensor(make_x(2, FS, seed=54), device=cuda)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="capture"):
+            fn(x, FS)
+    assert fn.captures == 0
+    del pipe.forward_cat
+    other = pt.AudioPipeline(jit_cfg(), device=cuda)
+    assert torch.equal(other.jit_forward_cat()(x, FS),
+                       other.forward_cat(x, FS))
+
+
+def test_compiled_forward_replays_show_in_the_profiler(cuda):
+    """The kernels of a replayed graph appear in a device profile
+    (``utils/deviceprof``), as the bench reads them.  A replay runs no
+    host code, so it opens no stage span: a profile of calls that each
+    drop their result (replays of the first slot, no capture) lists no
+    span, while a profile of calls that hold their results (a second
+    slot's warm-up and capture, run under the span src_eq_cat) lists that
+    span."""
+    from dsp_audio_project_tpu_torch.utils.deviceprof import (
+        profile_device_span,
+    )
+
+    pipe = pt.AudioPipeline(jit_cfg(), device=cuda)
+    fn = pipe.jit_forward_cat_spectra()
+    x = torch.as_tensor(make_x(2, FS, seed=55), device=cuda)
+    fn(x, FS)
+    torch.cuda.synchronize()
+
+    def dropped():
+        for _ in range(3):
+            fn(x, FS)
+
+    prof = profile_device_span(dropped)
+    names = " ".join(name for name, _ in prof.ops)
+    assert "fir_tf32" in names and "eq_finish" in names, prof.ops
+    assert prof.total_ms > 0 and prof.spans == [], prof.spans
+    assert fn.captures == 1
+    held = profile_device_span(lambda: [fn(x, FS) for _ in range(2)])
+    assert fn.captures == 2
+    assert [name for name, _ in held.spans] == ["src_eq_cat"], held.spans
