@@ -27,13 +27,17 @@ Phases, one or more lines each:
   2. build: every CUDA kernel from csrc/ with nvcc, one process per source,
      all started together (seconds);
   3. [k1] K1 (EQ-fused FIR, 3xTF32 on the tensor cores) vs its plain fp32
-     torch version at the serving shape;
+     torch version at the serving shape, then at the dynamic V = 172, the
+     stream's FL 12288 step (pad_left 0), a 1x8 shard's interior row, batch
+     1 at an odd n and 160/1001 (a stride that takes the streamed windows),
+     each line naming the body the shape took (``kernel_route``);
   4. [k2] K2 (register-radix |rfft|) vs its plain version at (24, 2048),
      and vs its plain version and float64 np.fft.rfft at one row of every
      power of two 256..8192; [k2c] K2's complex form the same way, at 2048
      rows of the STFT's (41344, 2048) frames and one row of each N;
   5. [k3] the frames FIR kernel (K1's body with V = P) vs its plain version
-     at the serving shape, and each entry point that runs it (fir_frames
+     at the serving shape and at [k1]'s other shapes (not the dynamic V),
+     each with its body, and each entry point that runs it (fir_frames
      'rect' K3, 'class' K4, 'shear' K5, the flat K6 and ``forward_flat``,
      E1 directly and as fir_path='pallas', E3, E4, E5) at a small shape and
      at the serving shape, the serving runs counted: each must launch the
@@ -462,6 +466,98 @@ def conv_yardstick(x: torch.Tensor, g: torch.Tensor, s: int, f_pad: int,
     return lambda: F.conv1d(xp, w, stride=s)
 
 
+def log_body(tag: str, what: str, W: int, V: int, s: int) -> None:
+    """Which body of csrc/fir_cat.cu a launch at (W, V, s) takes."""
+    from dsp_audio_project_tpu_torch.kernels.fir_class import kernel_route
+
+    r = kernel_route(W, V, s)
+    extra = (f", N {r['N']} x {r['ncb']} column block(s), {r['smem']} B "
+             "shared" if r["code"] <= 1 else "")
+    log(f"[{tag}] {what}: body {r['body']}{extra}")
+
+
+def fir_shape_cases(pipe, x: torch.Tensor) -> dict:
+    """The FIR body's shapes besides the serving one, each as the path
+    that makes it does: {name: (x, plan, G2 or None, frames, pad_left)}.
+    The dynamic V = 172 (K1 only: G2 given), the stream's step at FL 12288
+    (pad_left 0), an interior row of the 1x8 sharded chain, batch 1 at an
+    odd n and a float offset, and 160/1001, whose stride takes the
+    streamed windows.  G2 None: the serving G2 for the plan at 160/147, a
+    seeded [I | w] fold (d = 10) otherwise; frames None: ceil(n_out / P)."""
+    from dsp_audio_project_tpu_torch.kernels.fir_class import cat_operator
+    from dsp_audio_project_tpu_torch.ops.src import make_plan
+    from dsp_audio_project_tpu_torch.parallel import pipeline as tpipe
+
+    plan = pipe._plan()
+    cfg = pipe.config
+    rng = np.random.default_rng(31)
+
+    def sig(rows: int, n: int, offset: int = 0) -> torch.Tensor:
+        buf = torch.as_tensor(
+            (0.3 * rng.standard_normal(rows * n + offset)).astype(np.float32),
+            device=DEVICE)
+        return buf[offset:].view(rows, n)
+
+    w12 = np.hstack([np.eye(plan.P), 0.1 * rng.standard_normal((plan.P, 12))])
+    fl = 12288
+    sp, _ = tpipe._plan_shards(x.shape[-1], x.shape[0], 1, 8, cfg.src,
+                               cfg.kernels.iir_block)
+    wide = make_plan(160, 1001)
+    n1 = 20001
+    return {
+        "dynamic V = 172": (
+            x, plan, torch.as_tensor(cat_operator(plan.G, w12), device=DEVICE),
+            None, -plan.lo),
+        f"stream step, FL {fl}, pad_left 0": (
+            sig(x.shape[0], fl * plan.s + plan.W - plan.s), plan, None, fl, 0),
+        "1x8 sharded interior row": (
+            sig(x.shape[0], sp.halo_left + sp.n_in_local + sp.halo_right),
+            plan, None, sp.frames_local, -(plan.lo + sp.halo_left)),
+        f"batch 1, n = {n1}, float offset 1": (
+            sig(1, n1, 1), plan, None, None, -plan.lo),
+        "160/1001 (streamed windows)": (
+            sig(2, 200000, 1), wide, None, None, -wide.lo),
+    }
+
+
+def check_fir_shapes(tag: str, pipe, x: torch.Tensor, cat: bool) -> float:
+    """K1 (``cat``) or the frames kernel at ``fir_shape_cases``' shapes vs
+    its plain version, each shape's body logged.  Returns the max abs err."""
+    from dsp_audio_project_tpu_torch.kernels.fir_class import (
+        cat_operator, fir_cat_plain, fir_frames_kernel, fir_frames_plain,
+        plan_operator, polyphase_fir_class_rect_cat,
+    )
+
+    plan = pipe._plan()
+    rng = np.random.default_rng(32)
+    err = 0.0
+    for name, (xc, p, g2, frames, pad_left) in fir_shape_cases(pipe, x).items():
+        if frames is None:
+            frames = -(-pipe.config.src.output_length(xc.shape[-1]) // p.P)
+        if cat:
+            if g2 is None:
+                g2 = pipe.g2 if p is plan else torch.as_tensor(cat_operator(
+                    p.G, np.hstack([np.eye(p.P),
+                                    0.1 * rng.standard_normal((p.P, 10))])),
+                    device=DEVICE)
+            log_body(tag, name, p.W, g2.shape[1], p.s)
+            y0, inj = polyphase_fir_class_rect_cat(
+                xc, p, 0, None, num_frames=frames, pad_left=pad_left, g2=g2)
+            y0_ref, inj_ref = fir_cat_plain(xc, g2, p.P, p.s, y0.shape[-2],
+                                            pad_left)
+            torch.cuda.synchronize()
+            err = max(err, compare(tag, f"{name} y0", y0, y0_ref),
+                      compare(tag, f"{name} inj", inj, inj_ref))
+        elif g2 is None:                    # the frames kernel: V = P
+            g = plan_operator(p, DEVICE)
+            log_body(tag, name, p.W, p.P, p.s)
+            y = fir_frames_kernel(xc, g, p.s, frames, pad_left)
+            ref = fir_frames_plain(xc, g, p.s, frames, pad_left)
+            torch.cuda.synchronize()
+            err = max(err, compare(tag, name, y, ref))
+    return err
+
+
 def phase_k1(pipe, x: torch.Tensor) -> dict:
     from dsp_audio_project_tpu_torch.kernels.fir_class import (
         fir_cat_plain, frame_grid, polyphase_fir_class_rect_cat,
@@ -480,7 +576,9 @@ def phase_k1(pipe, x: torch.Tensor) -> dict:
 
     (y0, inj), (y0_ref, inj_ref) = kern(), plain()
     torch.cuda.synchronize()
-    err = max(compare("k1", "y0", y0, y0_ref), compare("k1", "inj", inj, inj_ref))
+    log_body("k1", "serving shape", plan.W, g2.shape[1], plan.s)
+    err = max(compare("k1", "y0", y0, y0_ref), compare("k1", "inj", inj, inj_ref),
+              check_fir_shapes("k1", pipe, x, cat=True))
     lib = conv_yardstick(x, g2, plan.s, f_pad, -plan.lo)
     b, simt, flops = fir_bound(x.shape[0], f_pad, plan.W, g2.shape[1],
                                x.shape[-1])
@@ -696,7 +794,9 @@ def phase_k3(pipe, x: torch.Tensor, small: torch.Tensor):
 
     y, ref = kern(), plain()
     torch.cuda.synchronize()
-    err = compare("k3", "frames", y, ref)
+    log_body("k3", "serving shape", plan.W, plan.P, plan.s)
+    err = max(compare("k3", "frames", y, ref),
+              check_fir_shapes("k3", pipe, x, cat=False))
     pallas = pt.AudioPipeline(pt.PipelineConfig(
         src=cfg.src, eq=cfg.eq, kernels=pt.KernelConfig(fir_path="pallas")),
         device=DEVICE)

@@ -12,7 +12,7 @@ Every TPU kernel of the JAX package (each function that reaches
 
 | id | JAX function (file:line) | port status |
 |----|--------------------------|-------------|
-| K1 | kernels/fir_class.py:731 polyphase_fir_class_rect_cat | ported: fir_class.py + csrc/fir_cat.cu (CUDA, tensor cores: mma.sync TF32, 3xTF32 split) |
+| K1 | kernels/fir_class.py:731 polyphase_fir_class_rect_cat | ported: fir_class.py + csrc/fir_cat.cu (CUDA, tensor cores: wgmma TF32 with A from registers, 3xTF32 split; mma.sync for strides whose span does not fit) |
 | K2 | kernels/rfft.py:125 rfft_pallas_four_step | ported: rfft.py + csrc/rfft_four_step.cu (CUDA, register-radix FFT on csrc/fft_radix.cuh), magnitude and complex forms |
 | K3 | kernels/fir_class.py:928 polyphase_fir_class_rect_frames | ported: fir_class.py on the frames kernel, csrc/fir_cat.cu fir_frames_launch (CUDA) |
 | K4 | kernels/fir_class.py:1042 polyphase_fir_class_frames | ported: fir_class.py on the frames kernel (CUDA) |

@@ -36,19 +36,29 @@ wrapper over the one kernel:
   to n_out;
 * K5 ``polyphase_fir_shear_frames`` lives in fir_shear.py.
 
-The kernel runs its products on the tensor cores (mma.sync TF32) with a
-3xTF32 split: each operand v is hi = rna_tf32(v) plus lo = rna_tf32(v - hi),
-and each 8-tap step accumulates a_lo b_hi + a_hi b_lo + a_hi b_hi in fp32.
-That keeps the fp32 product's accuracy (~140 dB against float64 at the
-serving plan, where one TF32 product gives ~72 dB and the JAX package's
-bf16x3 ~108 dB), so it serves src_fast=True and False alike; the wrappers
-take ``precision`` and ignore it.  At the serving shape the kernel is bound
-by bytes and by the three products about equally (~55-57 us each on an
-H100); see the note in ``csrc/fir_cat.cu``.  ``tf32_split`` and
-``fir_frames_3xtf32`` mirror that arithmetic in plain torch for the CPU
-tests; nothing on the main path calls them, and the plain versions
-(``fir_frames_plain``, ``fir_cat_plain``) stay the fp32 product the card
-compares the kernel with.
+The kernel runs its products on the tensor cores with a 3xTF32 split: each
+operand v is hi = rna_tf32(v) plus lo = rna_tf32(v - hi), each 8-tap step's
+a_lo b_hi + a_hi b_lo + a_hi b_hi goes into a fresh accumulator for a run of
+``FRESH_TAPS`` = 16 taps, and each run's sum is added to the running one in
+fp32 (the tensor core truncates its sum at the largest addend, so the
+running sum never enters it).  That keeps the fp32 product's accuracy
+(~135 dB against the fp32 plain version on the card, where one TF32 product
+gives ~72 dB and the JAX package's bf16x3 ~108 dB), so it serves
+src_fast=True and False alike; the wrappers take ``precision`` and ignore it.
+
+Where a shape's 128-frame span of x fits in shared memory (every shape of
+the main path), the launch takes the warpgroup body: a small kernel first
+writes G's TF32 halves into scratch the wrapper allocates (``_halves``), in
+the K-major layout wgmma reads, and ``fir_tf32_kernel`` then streams them
+through a shared ring by bulk copies while two consumer warpgroups run
+wgmma over 128 frames x every column, A built in registers from the span.
+Wider strides take the older mma.sync body (``kernel_route`` says which).
+At the serving shape the work is bound by bytes and by the three products
+about equally (~55-57 us each on an H100); see the note in
+``csrc/fir_cat.cu``.  ``tf32_split`` and ``fir_frames_3xtf32`` mirror that
+arithmetic in plain torch for the CPU tests; nothing on the main path calls
+them, and the plain versions (``fir_frames_plain``, ``fir_cat_plain``) stay
+the fp32 product the card compares the kernel with.
 """
 from __future__ import annotations
 
@@ -69,11 +79,16 @@ if TYPE_CHECKING:
 NUM_CLASSES = 128   # frame-grid granule of the JAX kernel (F_pad = Kp * 128)
 
 _LAUNCHERS = {
-    "fir_cat_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-    + [ctypes.c_void_p],
-    "fir_frames_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
-    + [ctypes.c_void_p],
+    "fir_cat_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int64]
+    + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "fir_frames_launch": [ctypes.c_void_p] * 4 + [ctypes.c_int64]
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "fir_tf32_route": [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "fir_tf32_scratch_floats": [ctypes.c_int] * 3,
 }
+# The kernel's bodies by fir_tf32_route's code (csrc/fir_cat.cu).
+BODIES = ("wgmma, two span buffers", "wgmma, one span buffer",
+          "mma.sync, span at 32 frames", "mma.sync, streamed windows")
 _g2_cache: dict = {}
 _g_cache: dict = {}
 
@@ -155,16 +170,44 @@ def tf32_split(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, _tf32_rna(t - hi)
 
 
+FRESH_TAPS = 16   # taps a fresh accumulator takes in csrc/fir_cat.cu
+
+
 def fir_frames_3xtf32(x: torch.Tensor, g: torch.Tensor, s: int, f_pad: int,
-                      pad_left: int) -> torch.Tensor:
-    """The kernel's arithmetic in plain torch: ``fir_frames_plain`` on the
-    TF32 halves, x_lo g_hi + x_hi g_lo + x_hi g_hi (each product exact in
-    fp32, the sums in fp32).  For the CPU tests only."""
+                      pad_left: int, run: int = FRESH_TAPS) -> torch.Tensor:
+    """The kernel's arithmetic in plain torch, in its order: the taps in
+    runs of ``run`` (a multiple of 8; the last run padded with zero taps),
+    each 8-tap step's x_lo g_hi + x_hi g_lo + x_hi g_hi (each product exact
+    in fp32) summed into the run's fresh fp32 sum, and each run's sum added
+    to the running one.  (The tensor core's own sum inside a run truncates
+    at its largest addend; fp32 sums stand in for it.)  For the CPU tests
+    only."""
+    if run % 8 or run <= 0:
+        raise ValueError(f"run must be a positive multiple of 8, got {run}")
+    W, V = g.shape
+    wp = -(-W // run) * run
     xh, xl = tf32_split(x)
-    gh, gl = tf32_split(g)
-    return ((fir_frames_plain(xl, gh, s, f_pad, pad_left)
-             + fir_frames_plain(xh, gl, s, f_pad, pad_left))
-            + fir_frames_plain(xh, gh, s, f_pad, pad_left))
+    gh, gl = (F.pad(t, (0, 0, 0, wp - W)) for t in tf32_split(g))
+    if f_pad == 0:
+        return x.new_zeros((x.shape[0], 0, V))
+    total = (f_pad - 1) * s + wp
+
+    def windows(t):
+        n = t.shape[-1]
+        tp = F.pad(t, (pad_left, max(0, total - pad_left - n)))
+        return tp[..., :total].unfold(-1, wp, s)
+
+    wh, wl = windows(xh), windows(xl)
+    acc = None
+    for r0 in range(0, wp, run):
+        fresh = None
+        for k in range(r0, r0 + run, 8):
+            ks = slice(k, k + 8)
+            step = ((wl[..., ks] @ gh[ks] + wh[..., ks] @ gl[ks])
+                    + wh[..., ks] @ gh[ks])
+            fresh = step if fresh is None else fresh + step
+        acc = fresh if acc is None else acc + fresh
+    return acc
 
 
 def fir_cat_plain(x: torch.Tensor, g2: torch.Tensor, P: int, s: int,
@@ -197,11 +240,45 @@ def _rows(x: torch.Tensor, pad_left: int):
     return x2, pad_left
 
 
+@functools.lru_cache(maxsize=None)
+def _scratch_floats(device_index: int, W: int, V: int, s: int) -> int:
+    lib = _build.load("fir_cat", _LAUNCHERS)
+    with torch.cuda.device(device_index):
+        return int(lib.fir_tf32_scratch_floats(W, V, s))
+
+
+def kernel_route(W: int, V: int, s: int, device=None) -> dict:
+    """Which body of ``csrc/fir_cat.cu`` a launch at (W taps, V columns,
+    stride s) takes on ``device`` (a card): ``body`` (one of ``BODIES``),
+    and for the warpgroup body its column block width ``N``, column blocks
+    ``ncb``, span buffers ``nspan`` and shared bytes ``smem``.  The choice
+    is by shape only."""
+    lib = _build.load("fir_cat", _LAUNCHERS)
+    info = (ctypes.c_int * 4)()
+    with torch.cuda.device(torch.device("cuda") if device is None else device):
+        code = lib.fir_tf32_route(W, V, s, info)
+    return {"body": BODIES[code], "code": code, "N": info[0],
+            "ncb": info[1], "nspan": info[2], "smem": info[3]}
+
+
+def _halves(x: torch.Tensor, W: int, V: int, s: int):
+    """Scratch for G's TF32 halves, which the launch writes before the
+    warpgroup body reads them: (float32 tensor, floats), or (None, 0)
+    where the shape takes the mma.sync body."""
+    nf = _scratch_floats(x.device.index if x.device.index is not None
+                         else torch.cuda.current_device(), W, V, s)
+    if nf == 0:
+        return None, 0
+    return torch.empty(nf, dtype=torch.float32, device=x.device), nf
+
+
 def _launch(x, g2, y0, inj, n, f_pad, W, V, P, s, pad_left):
     lib = _build.load("fir_cat", _LAUNCHERS)
+    planes, nf = _halves(x, W, V, s)
     with torch.cuda.device(x.device):
         err = lib.fir_cat_launch(
             x.data_ptr(), g2.data_ptr(), y0.data_ptr(), inj.data_ptr(),
+            0 if planes is None else planes.data_ptr(), nf,
             x.shape[0], n, f_pad, W, V, P, s, pad_left,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
@@ -273,9 +350,11 @@ polyphase_fir_class_rect_cat.launches = 0
 
 def _launch_frames(x, g, y, n, f_out, W, P, s, pad_left):
     lib = _build.load("fir_cat", _LAUNCHERS)
+    planes, nf = _halves(x, W, P, s)
     with torch.cuda.device(x.device):
         err = lib.fir_frames_launch(
             x.data_ptr(), g.data_ptr(), y.data_ptr(),
+            0 if planes is None else planes.data_ptr(), nf,
             x.shape[0], n, f_out, W, P, s, pad_left,
             torch.cuda.current_stream(x.device).cuda_stream,
         )

@@ -1,10 +1,12 @@
 """The windowed-FIR kernel's 3xTF32 arithmetic, mirrored in torch, vs the JAX package.
 
 CPU.  The CUDA kernel (csrc/fir_cat.cu) splits each operand into TF32
-halves, hi = rna(v) and lo = rna(v - hi), and accumulates a_lo b_hi +
-a_hi b_lo + a_hi b_hi.  ``fir_class.tf32_split`` and ``fir_frames_3xtf32``
-mirror that arithmetic; here they are held against hand-built bit patterns,
-the fp32 plain version and the JAX kernels (K3 ``polyphase_fir_class_rect_
+halves, hi = rna(v) and lo = rna(v - hi), sums each 8-tap step's a_lo b_hi
++ a_hi b_lo + a_hi b_hi into a fresh accumulator for a run of FRESH_TAPS
+taps, and adds each run's sum to the running one in fp32.
+``fir_class.tf32_split`` and ``fir_frames_3xtf32`` mirror that arithmetic;
+here they are held against hand-built bit patterns, the fp32 plain version
+and the JAX kernels (K3 ``polyphase_fir_class_rect_
 frames``, K1 ``polyphase_fir_class_rect_cat``, Pallas in interpret mode at
 HIGHEST precision, as tests/test_torch_frames.py and test_torch_fir_cat.py
 run them).  Bounds:
@@ -32,8 +34,8 @@ from dsp_audio_project_tpu.kernels.fir_class import (
 from dsp_audio_project_tpu.ops.src import make_plan as jmake_plan
 from dsp_audio_project_tpu_torch import EQConfig, SRCConfig
 from dsp_audio_project_tpu_torch.kernels.fir_class import (
-    cat_operator, fir_cat_plain, fir_frames_3xtf32, fir_frames_plain,
-    frame_grid, tf32_split,
+    FRESH_TAPS, cat_operator, fir_cat_plain, fir_frames_3xtf32,
+    fir_frames_plain, frame_grid, tf32_split,
 )
 from dsp_audio_project_tpu_torch.ops.eq import (
     eq_cat_weights, make_block_operators,
@@ -109,13 +111,18 @@ def snr(a, b) -> float:
     return snr_db(np.asarray(a).ravel(), np.asarray(b).ravel())
 
 
-@pytest.mark.parametrize("route,L,M", [("frames", 160, 147),
-                                       ("frames", 441, 480),
-                                       ("cat", 160, 147), ("cat", 441, 480)])
-def test_3xtf32_mirror_matches_plain_and_jax(route, L, M):
+@pytest.mark.parametrize("route,L,M,run", [
+    pytest.param("frames", 160, 147, FRESH_TAPS, id="frames-160-147"),
+    pytest.param("frames", 441, 480, FRESH_TAPS, id="frames-441-480"),
+    pytest.param("cat", 160, 147, FRESH_TAPS, id="cat-160-147"),
+    pytest.param("cat", 441, 480, FRESH_TAPS, id="cat-441-480"),
+    pytest.param("cat", 160, 147, 8, id="cat-160-147-run8"),
+])
+def test_3xtf32_mirror_matches_plain_and_jax(route, L, M, run):
     """A few hundred frames (F_pad = 1024, the JAX grid's smallest) at the
     serving plan and at 441/480: frames with G (K3), or y0 | inj with K1's
-    G2 = G @ w_cat."""
+    G2 = G @ w_cat; the kernel's fresh runs of FRESH_TAPS taps, and one
+    case at runs of one 8-tap step (the mma.sync body's order)."""
     plan, jplan = make_plan(L, M), jmake_plan(L, M)
     n = 32000
     x = make_x(2, n, seed=L)
@@ -139,7 +146,7 @@ def test_3xtf32_mirror_matches_plain_and_jax(route, L, M):
                               precision=jax.lax.Precision.HIGHEST)
         inj_j = np.asarray(inj_j).reshape(2, -1, DPAD)[..., :d]
         want = np.concatenate([np.asarray(y0_j), inj_j], axis=-1)
-    mirror = fir_frames_3xtf32(xt, g, plan.s, f_pad, -plan.lo)
+    mirror = fir_frames_3xtf32(xt, g, plan.s, f_pad, -plan.lo, run=run)
     plain = fir_frames_plain(xt, g, plan.s, f_pad, -plan.lo)
     assert mirror.shape == plain.shape == want.shape == (2, f_pad, g.shape[1])
     if route == "cat":      # the split of K1's plain version is a view of it

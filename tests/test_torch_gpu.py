@@ -12,7 +12,9 @@ terms in different orders), at the plans 160/147, 441/480, 320/441 and 3/2
 and at the edges of the kernel's geometry (batch 1 and 3, 1, 127 and
 18,433 frames, pad_left 0 and 500, a view at an odd float offset, a stride
 too wide for the span in shared memory, s = 3 through ``pt.resample`` on a
-strided view), > 120 dB for K9 (d <= 12
+strided view) and at the main path's shapes with the body each takes (the
+serving 8 x 60 s, V = 172, the stream's FL 12288 step, a 1x8 shard's row,
+batch 1 at an odd n, 160/1001's streamed windows), > 120 dB for K9 (d <= 12
 products and one add, in another order) and > 110 dB for K2 (fp32,
 different orders; small bins carry the relative error); the cat and frames
 chains on the card vs on the CPU (plain versions): > 110 dB for z, y and
@@ -448,6 +450,61 @@ def test_fir_kernels_at_edge_geometries(cuda, case):
     torch.cuda.synchronize()
     assert snr_db(host(y0r), host(y0)) > 120
     assert snr_db(host(injr), host(inj)) > 120
+
+
+# The main path's FIR shapes and the body each must take (kernel_route's
+# code: 0 the wgmma body with two span buffers, 3 the mma.sync body's
+# streamed windows): (batch, n, frames or None for ceil(n_out / P),
+# pad_left or None for -plan.lo, L/M, inj columns d, body).  "shard": an
+# interior row of the 1x8 sharded chain at 8 x 60 s, from its shard plan.
+FIR_BODY_SHAPES = {
+    "serving 8 x 60 s": (8, 60 * FS, None, None, (160, 147), 10, 0),
+    "dynamic V = 172": (8, 60 * FS, None, None, (160, 147), 12, 0),
+    "stream step FL 12288, pad_left 0": (8, 12288 * 147 + 40, 12288, 0,
+                                         (160, 147), 10, 0),
+    "1x8 sharded interior row": ("shard", None, None, None, (160, 147), 10, 0),
+    "batch 1, odd n": (1, 20001, None, None, (160, 147), 10, 0),
+    "streamed windows (160/1001)": (2, 200000, None, None, (160, 1001), 10, 3),
+}
+
+
+@pytest.mark.parametrize("case", list(FIR_BODY_SHAPES))
+def test_fir_bodies_at_the_paths_shapes(cuda, case):
+    """K1 and the frames kernel at the shapes the main path gives them:
+    each takes the body the shape calls for (printed) and holds against
+    its plain version at > 120 dB."""
+    from dsp_audio_project_tpu_torch.kernels.fir_class import kernel_route
+    from dsp_audio_project_tpu_torch.parallel import pipeline as tpipe
+
+    batch, n, frames, pad_left, (L, M), d, code = FIR_BODY_SHAPES[case]
+    plan = make_plan(L, M)
+    if batch == "shard":
+        sp, _ = tpipe._plan_shards(60 * FS, 8, 1, 8, pt.SRCConfig(L=L, M=M),
+                                   8192)
+        batch, n = 8, sp.halo_left + sp.n_in_local + sp.halo_right
+        frames, pad_left = sp.frames_local, -(plan.lo + sp.halo_left)
+    if frames is None:
+        frames = -(-pt.SRCConfig(L=L, M=M).output_length(n) // plan.P)
+    if pad_left is None:
+        pad_left = -plan.lo
+    x = torch.as_tensor(make_x(batch, n, seed=len(case)), device=cuda)
+    g2 = cat_g2(plan, cuda, d)
+    for V in (plan.P + d, plan.P):
+        route = kernel_route(plan.W, V, plan.s)
+        print(f"{case}: V = {V} takes the {route['body']} body")
+        assert route["code"] == code, route
+    y0, inj = polyphase_fir_class_rect_cat(x, plan, 0, None, g2=g2,
+                                           num_frames=frames,
+                                           pad_left=pad_left)
+    y0r, injr = fir_cat_plain(x, g2, plan.P, plan.s, y0.shape[-2], pad_left)
+    g = plan_operator(plan, cuda)
+    y = fir_frames_kernel(x, g, plan.s, frames, pad_left)
+    ref = fir_frames_plain(x, g, plan.s, frames, pad_left)
+    torch.cuda.synchronize()
+    assert snr_db(host(y0r), host(y0)) > 120
+    assert snr_db(host(injr), host(inj)) > 120
+    assert y.shape == ref.shape == (batch, frames, plan.P)
+    assert snr_db(host(ref), host(y)) > 120
 
 
 def test_resample_s3_on_a_strided_view(cuda):
