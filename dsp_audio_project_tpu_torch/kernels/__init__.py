@@ -30,8 +30,15 @@ Every TPU kernel of the JAX package (each function that reaches
 | E6 | kernels/experiments/rfft_butterfly.py:76 rfft_pallas | ported: experiments/rfft_butterfly.py + csrc/rfft_butterfly.cu (CUDA, register-radix FFT on csrc/fft_radix.cuh); K7's kernel above N = 32768 |
 | E7 | kernels/experiments/iir_seq.py:127 equalize_seq_flat | ported: experiments/iir_seq.py + csrc/iir_block.cu (CUDA, the same body, SEQ mode: a fixed-window decoupled look-back) |
 
+Kernels that replace no TPU kernel:
+
+| kernel | what it replaces | file |
+|--------|------------------|------|
+| eq_design | the device gain builder's ~220 float64 torch ops (ops/eq_dynamic.build_dynamic_operators; the JAX package's df32 ops, ops/eq_dynamic.py:228 _dynamic_operators) | eq_design.py + csrc/eq_design.cu (CUDA, three launches: one block designs the bands and squares the powers' heads, a block a power multiplies heads, a block a row writes the triangles) |
+
 Times on the card are in PERF.md.
 """
+from .eq_design import eq_design
 from .eq_finish import eq_finish
 from .experiments import (
     block_apply,
@@ -62,13 +69,13 @@ KERNELS = (polyphase_fir_class_rect_cat, fir_frames_kernel, eq_finish,
            polyphase_fir_dma, polyphase_fir_rect_splitbank,
            polyphase_fir_rect_rowdma, polyphase_fir_class_frames,
            polyphase_fir_shear_frames, polyphase_fir_class_flat,
-           polyphase_fir)
+           polyphase_fir, eq_design)
 
 
 def launch_counts() -> dict:
-    """{wrapper name: launches} for every ported kernel (K4-K6, E1 and
-    E3-E5 count their launches of the frames kernel, which counts them
-    too)."""
+    """{wrapper name: launches} for every hand-written kernel (K4-K6, E1
+    and E3-E5 count their launches of the frames kernel, which counts them
+    too; eq_design a call of its three kernels)."""
     return {k.__name__: k.launches for k in KERNELS}
 
 

@@ -565,8 +565,12 @@ class AudioPipeline(nn.Module):
     def jit_forward_frames_dynamic(self) -> CompiledForward:
         """Compiled (x, gains_db, fs) -> (z_frames, y_frames):
         ``forward_frames_dynamic``.  The gains go into a static (6,)
-        float32 buffer and the device builder runs inside the graph, so
-        one capture serves every gain vector (no host design, no sync)."""
+        float32 buffer and the device builder (``kernels/eq_design``) runs
+        inside the graph, so one capture serves every gain vector with no
+        host design.  Gains given on the host (numpy, a list, a CPU
+        tensor) are copied in by a blocking copy, which synchronizes the
+        stream (``utils/device._load``): gains already on the card keep the
+        host ahead of the device."""
         return self._jit("forward_frames_dynamic")
 
     def jit_forward_frames_dynamic_ops(self) -> CompiledForward:

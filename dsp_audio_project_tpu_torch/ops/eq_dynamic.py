@@ -12,13 +12,14 @@ of device tables, which the per-batch apply side takes as an argument:
   the tests), a small upload (``upload_dyn_tables``) and the two large
   triangles expanded on the device (``_expand_dyn_operators``);
 * ``build_dynamic_operators`` (gains as a device tensor): the whole design
-  on the device in float64, rounded to float32 at the end.  Each band is a
-  2x2 realization in closed form (a rotation block for a complex pole
-  pair, [[l1, 1], [0, l2]] for a real one, chosen by ``torch.where``), the
-  six bands compose into one order-12 system, and the block tables come
-  from powers by doubling.  It never reads a value back to the host (no
-  ``.item()``, no branch on a tensor), so a gain change can be captured in
-  a CUDA graph.  The JAX package builds in df32 because a TPU has no
+  on the device in float64, rounded to float32 at the end, by
+  ``kernels/eq_design.eq_design``: on the card three hand-written kernels
+  (``csrc/eq_design.cu``), on the CPU the plain torch version.  Each band
+  is a 2x2 realization in closed form (a rotation block for a complex pole
+  pair, [[l1, 1], [0, l2]] for a real one), the six bands compose into one
+  order-12 system, and the block tables are views of its powers.  It
+  never reads a value back to the host, so a gain change can be captured
+  in a CUDA graph.  The JAX package builds in df32 because a TPU has no
   float64; the H100 has it, so ``utils/df32.py`` is not ported.
 
 The apply side is the static path's algebra on these tables: the group
@@ -53,14 +54,11 @@ import torch.nn.functional as F
 
 from ..config import EQConfig
 from ..design.biquad import cascade_state_space, peaking_coeffs, schur_form
+from ..kernels.eq_design import _dense_carry, _lower_triangle, eq_design
 from ..kernels.eq_finish import eq_finish
 from ..kernels.fir_class import plan_operator
 from ..utils.device import as_input, default_device, device_tables
 from .eq import _carry_states, _group_states
-
-# Dense-carry ceiling: up to this K*d the block carry is ONE (K d, K d)
-# triangle product; above it the log-depth scan.  2048: a 16 MB f32 table.
-_CARRY_DENSE_MAX_KD = 2048
 
 
 class DynOperators(NamedTuple):
@@ -79,10 +77,6 @@ class CatDynTables(NamedTuple):
     """The cat path's per-gain-change table: K1's operator."""
 
     g2: torch.Tensor          # (W, P + d) float32, G @ [fir_t | group_in]
-
-
-def _dense_carry(K: Optional[int], d: int) -> bool:
-    return K is not None and 1 < K and K * d <= _CARRY_DENSE_MAX_KD
 
 
 # ---- the host builder (float64 numpy, as the JAX package's) ---------------
@@ -154,21 +148,6 @@ def upload_dyn_tables(tabs, device):
                  else torch.as_tensor(np.array(a, np.float32, order="C"),
                                      device=device)
                  for a in tabs)
-
-
-def _lower_triangle(pows: torch.Tensor, n: int, d: int) -> torch.Tensor:
-    """(n d, n d) block Toeplitz with block (v, r) = pows[r-v]^T for v <= r.
-
-    Row-vector convention: vecs_flat @ result accumulates pows[r-v] vecs[v]
-    into slot r, the expanded lower-triangular recurrence solve.  One
-    gather of the n x n blocks (a copy, exact).
-    """
-    k = torch.arange(n, device=pows.device)
-    lag = k[None, :] - k[:, None]                       # [v, r] = r - v
-    blocks = pows[lag.clamp(min=0)].transpose(-1, -2)   # [v, r] = pows[r-v]^T
-    blocks = torch.where((lag >= 0)[..., None, None], blocks,
-                         blocks.new_zeros(()))
-    return blocks.permute(0, 2, 1, 3).reshape(n * d, n * d)
 
 
 def _expand_dyn_operators(group_in, group_out, fir_t, pows_g, A_blk, pk
@@ -311,127 +290,16 @@ def _band_trig(fs: int, band_centers, nyquist_safety: float):
     return np.sin(w0), np.cos(w0)
 
 
-def _band_realization(sin_w0, cos_w0, gain_db, q: float):
-    """The peaking biquads (Q = q) of every band as 2-state systems in closed
-    form, float64, vectorized over the nb bands: (A (nb, 2, 2), B (nb, 2),
-    C (nb, 2), D (nb,)).
-
-    disc/4 = sin^2(w0) (1/A^2 - 4) / (4 a0^2) has an exact sign: poles are
-    complex for amp > 1/2.  A complex pair is the rotation block [[m, r],
-    [-r, m]] with B = [1, 0]; a real pair [[l1, 1], [0, l2]] with B = [1, 1]
-    (the unit coupling keeps the maps bounded as l1 -> l2).  Both branches
-    are computed and ``torch.where`` picks one; the divisions of the branch
-    not taken are guarded, so no Inf or NaN reaches a product or a
-    gradient.
-    """
-    one = torch.ones_like(gain_db)
-    zero = torch.zeros_like(gain_db)
-    amp = torch.pow(10.0, gain_db / 40.0)
-    alpha = sin_w0 / (2.0 * q)
-    al_over = alpha / amp
-    al_times = alpha * amp
-    a0 = 1.0 + al_over
-    a1 = -2.0 * cos_w0 / a0
-    a2 = (1.0 - al_over) / a0
-    b0 = (1.0 + al_times) / a0
-    # b1 == a1: the numerator residual c(z) = c1 z + c0 with c1 = a1 (1 - b0)
-    # and 1 - b0 in closed form, alpha (1/A - A) / a0, free of cancellation.
-    c1 = a1 * (alpha * (1.0 / amp - amp) / a0)
-    c0 = (1.0 - al_times) / a0 - b0 * a2
-    m = -0.5 * a1
-    disc4 = sin_w0 * sin_w0 * (1.0 / (amp * amp) - 4.0) / (4.0 * a0 * a0)
-    is_complex = disc4 < 0.0
-    root = torch.sqrt(disc4.abs())
-
-    # Complex pair: C adj(zI - A) B = g1 z - g1 m - g2 r with g1 = c1,
-    # g2 = -(c0 + c1 m) / r.
-    r_safe = torch.where(is_complex, root.clamp(min=1e-300), one)
-    g2_c = -(c0 + c1 * m) / r_safe
-    # Real pair: g1 (1 - l2 + l1) = c0 + c1 l1 and g2 = c1 - g1.
-    l1, l2 = m + root, m - root
-    denom = torch.where(is_complex, one, 1.0 - l2 + l1)
-    g1_r = (c0 + c1 * l1) / denom
-
-    def pick(c, r):
-        return torch.where(is_complex, c, r)
-
-    A = torch.stack([torch.stack([pick(m, l1), pick(root, one)], -1),
-                     torch.stack([pick(-root, zero), pick(m, l2)], -1)], -2)
-    B = torch.stack([one, pick(zero, one)], -1)
-    C = torch.stack([pick(c1, g1_r), pick(g2_c, c1 - g1_r)], -1)
-    return A, B, C, b0
-
-
-def _compose_cascade(A, B, C, D):
-    """Series composition of nb 2-state bands (band 0 first) into one
-    order-2nb system, as ``design.biquad.series`` folds them: block (i, i)
-    of A is A_i, block (i, j < i) is B_i C_j times the D of the bands
-    between them; B_i carries the D of the bands before it, C_j of those
-    after it.  Returns (A (2nb, 2nb), B (2nb,), C (2nb,), D ())."""
-    nb = D.shape[0]
-    k = torch.arange(nb, device=D.device)
-    i, j = k[:, None], k[None, :]
-    kk = k[None, None, :]
-    between = (kk > j[..., None]) & (kk < i[..., None])           # j < k < i
-    gap = torch.where(between, D, torch.ones_like(D)).prod(-1)    # (i, j)
-    off = gap[..., None, None] * B[:, None, :, None] * C[None, :, None, :]
-    blocks = torch.where((j < i)[..., None, None], off,
-                         torch.where((j == i)[..., None, None], A[:, None],
-                                     torch.zeros_like(off)))
-    before = torch.where(j < i, D[None, :], torch.ones_like(gap)).prod(-1)
-    after = torch.where(j > i, D[None, :], torch.ones_like(gap)).prod(-1)
-    return (blocks.permute(0, 2, 1, 3).reshape(2 * nb, 2 * nb),
-            (B * before[:, None]).reshape(-1),
-            (C * after[:, None]).reshape(-1), D.prod())
-
-
-def _cumulative_powers(A: torch.Tensor, count: int) -> torch.Tensor:
-    """[I, A, ..., A^{count-1}] by batched doubling: log2(count) products,
-    each of a shape fixed by ``count`` alone."""
-    out = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)[None]
-    while out.shape[0] < count:
-        m = out.shape[0]
-        head = out[-1] @ A                               # A^m
-        out = torch.cat([out, head @ out[: min(m, count - m)]])
-    return out
-
-
 def _dynamic_operators(gains_db: torch.Tensor, fs: int, cfg: EQConfig,
                        U: int, G: int, K: Optional[int] = None
                        ) -> DynOperators:
-    """The device builder's body: float64 design on gains' device, tables
-    rounded to float32 at the end (they are float32 views of one float64
-    system).  ``K`` as in ``build_dynamic_operators``."""
-    g = gains_db.to(torch.float64)
-    # The reference's band skip (dsp_core.py:234): a 0 dB band is exactly
-    # the identity (b == a), so masking reproduces the skip.
-    g = torch.where(g.abs() > cfg.bypass_threshold_db, g, torch.zeros_like(g))
+    """The device builder's body: ``kernels/eq_design.eq_design`` on the
+    gains' device (the two float64 kernels on the card, the plain torch
+    version on the CPU).  ``K`` as in ``build_dynamic_operators``."""
     sin_w0, cos_w0 = device_tables(_band_trig, int(fs), cfg.band_centers,
-                                   cfg.nyquist_safety, device=g.device)
-    A, Bv, Cv, D = _compose_cascade(*_band_realization(sin_w0, cos_w0, g,
-                                                       cfg.q))
-    d = A.shape[0]
-    f32 = torch.float32
-
-    pu = _cumulative_powers(A, U + 1)                    # (U+1, d, d)
-    CA_u = torch.einsum("a,uab->ub", Cv, pu[:U])         # (U, d): C A^u
-    group_in = pu[:U].flip(0) @ Bv                       # (U, d): A^{U-1-v} B
-    seq = CA_u @ Bv                                      # (U,):  C A^u B
-    uu = torch.arange(U, device=g.device)
-    idx = uu[:, None] - 1 - uu[None, :]
-    fir = torch.where(idx >= 0, seq[idx.clamp(0, U - 1)],
-                      torch.zeros_like(seq))
-    fir = fir + D * torch.eye(U, dtype=fir.dtype, device=fir.device)
-    pg = _cumulative_powers(pu[U], G + 1)                # (G+1, d, d): (A^U)^g
-    pows_g = pg[:G].to(f32)
-    carry_w = None
-    if _dense_carry(K, d):
-        carry_w = _lower_triangle(_cumulative_powers(pg[G], K).to(f32), K, d)
-    return DynOperators(
-        group_in=group_in.to(f32), group_out=CA_u.T.contiguous().to(f32),
-        fir_t=fir.T.contiguous().to(f32), toe=_lower_triangle(pows_g, G, d),
-        pows_g=pows_g, A_blk=pg[G].to(f32), carry_w=carry_w,
-    )
+                                   cfg.nyquist_safety, device=gains_db.device)
+    return DynOperators(*eq_design(gains_db, sin_w0, cos_w0, cfg.q,
+                                   cfg.bypass_threshold_db, U, G, K))
 
 
 def build_dynamic_operators(

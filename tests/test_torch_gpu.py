@@ -31,7 +31,14 @@ vs on the CPU, for each builder (> 110 dB; the cat path >= 110 dB against
 the frames path), K1 at V = 172 and K9 at d = 12 vs plain (> 120 dB), and
 a gain change inside one captured CUDA graph (bit for bit against the
 eager call, or >= 130 dB where a captured product takes another cuBLAS
-algorithm).  Streaming: each route of ``ShardedStreamProcessor`` on the
+algorithm).  The device gain builder (``kernels/eq_design``: three
+kernels) against its plain version for five gain sets at five geometries
+(the slider's U, G, K = 160, 128, 144; no dense carry at K = 1 and K d >
+2048): every table within one float32 ulp of its largest magnitude, two
+launches bit for bit, one capture replayed for two gain vectors equal to
+the eager call, ``forward_frames_dynamic`` >= 120 dB against the same
+forward on the plain version's operators, and a build failure raises.
+Streaming: each route of ``ShardedStreamProcessor`` on the
 card vs the same processor on the CPU (> 110 dB), its kernels launched and
 its step captured once; the graph replay bit for bit against the eager
 step; resume bit for bit; ``set_gains`` with no re-capture (> 110 dB vs
@@ -929,6 +936,124 @@ def test_gain_change_in_cuda_graphs(cuda):
         assert snr_db(host(want), host(got)) > 110
     assert caches == (teq.make_block_operators.cache_info(),
                       len(teq._device_tables))
+
+
+# ---- the device gain builder (kernels/eq_design.py) ------------------------
+
+# tests/test_torch_eq_dynamic.py's gain sets: complex poles, all +15,
+# real poles, all zero, below the 0.1 dB threshold.
+DESIGN_GAINS = ((6.0, -3.0, 0.0, 12.0, -15.0, 4.0), (15.0,) * 6,
+                (-15.0, -14.0, -13.0, -12.5, -3.0, 0.0), (0.0,) * 6,
+                (0.05, -0.05, 0.0, 0.0, 0.0, 0.0))
+# (U, G, K): the slider's 60 s at 160/147; a small one; 441/480's unroll
+# (nine heads of A); no dense carry (K = 1, and K d > 2048).
+DESIGN_GEOMETRIES = ((160, 128, 144), (160, 16, 4), (441, 32, 40),
+                     (32, 8, 1), (32, 8, 171))
+
+
+def design_inputs(gains, device, fs=48000):
+    from dsp_audio_project_tpu_torch.ops.eq_dynamic import _band_trig
+    from dsp_audio_project_tpu_torch.utils.device import device_tables
+
+    cfg = pt.EQConfig()
+    sin_w0, cos_w0 = device_tables(_band_trig, fs, cfg.band_centers,
+                                   cfg.nyquist_safety, device=device)
+    g = torch.tensor(gains, dtype=torch.float32, device=device)
+    return g, sin_w0, cos_w0, cfg.q, cfg.bypass_threshold_db
+
+
+@pytest.mark.parametrize("geometry", DESIGN_GEOMETRIES)
+@pytest.mark.parametrize("gains", DESIGN_GAINS)
+def test_eq_design_kernel_matches_plain(cuda, gains, geometry):
+    """Both kernels, one launch counted: every table within one float32
+    ulp of the plain table's largest magnitude (both in float64, summed in
+    other orders), carry_w None where the plain version has none, and a
+    second launch bit for bit."""
+    from dsp_audio_project_tpu_torch.kernels.eq_design import (
+        dynamic_operators_plain, eq_design, ulp_error,
+    )
+
+    args = design_inputs(gains, cuda) + geometry
+    before = eq_design.launches
+    got = eq_design(*args)
+    again = eq_design(*args)
+    want = dynamic_operators_plain(*args)
+    torch.cuda.synchronize()
+    assert eq_design.launches == before + 2
+    for a, b, c in zip(got, want, again):
+        if b is None:
+            assert a is None and c is None
+            continue
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
+        assert ulp_error(a, b) <= 1.0
+        assert torch.equal(a, c)
+
+
+def test_eq_design_in_a_cuda_graph(cuda):
+    """One captured call replayed for two gain vectors copied into its
+    buffer: each replay equal to the eager call bit for bit."""
+    from dsp_audio_project_tpu_torch.kernels.eq_design import eq_design
+
+    g, sin_w0, cos_w0, q, thr = design_inputs(DESIGN_GAINS[0], cuda)
+    geometry = (160, 128, 144)
+
+    def build():
+        return eq_design(g, sin_w0, cos_w0, q, thr, *geometry)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        build()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = build()
+    for gains in DESIGN_GAINS[1:3]:
+        g.copy_(torch.tensor(gains))
+        graph.replay()
+        torch.cuda.synchronize()
+        got = [t.clone() for t in outs]
+        for a, b in zip(got, build()):
+            assert torch.equal(a, b)
+
+
+def test_forward_frames_dynamic_on_the_kernels_matches_plain_builder(cuda):
+    """forward_frames_dynamic (the kernels build its operators) against
+    the same forward on operators from the plain version: z >= 120 dB."""
+    from dsp_audio_project_tpu_torch.kernels.eq_design import (
+        dynamic_operators_plain, eq_design,
+    )
+    from dsp_audio_project_tpu_torch.ops.eq_dynamic import DynOperators
+
+    pipe = dyn_pipe()
+    x = torch.as_tensor(make_x(2, 3 * FS, seed=25), device=cuda)
+    U, G, K = pipe.dynamic_eq_geometry(FS, x.shape[-1])
+    for gains in DESIGN_GAINS:
+        g, sin_w0, cos_w0, q, thr = design_inputs(gains, cuda)
+        before = eq_design.launches
+        z, _ = pipe.forward_frames_dynamic(x, g, FS)
+        assert eq_design.launches == before + 1
+        ops = DynOperators(*dynamic_operators_plain(g, sin_w0, cos_w0, q, thr,
+                                                    U, G, K))
+        want, _ = pipe.forward_frames_dynamic_ops(x, ops, FS)
+        torch.cuda.synchronize()
+        assert snr_db(host(want), host(z)) >= 120
+
+
+def test_eq_design_raises_when_the_kernel_cannot_build(cuda, monkeypatch):
+    from dsp_audio_project_tpu_torch.kernels.eq_design import eq_design
+
+    def refuse(name, launchers):
+        raise RuntimeError(f"build of {name} refused")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    with pytest.raises(RuntimeError, match="refused"):
+        eq_design(*design_inputs(DESIGN_GAINS[0], cuda), 160, 16, 4)
+    with pytest.raises(ValueError, match="bands"):
+        eq_design(torch.zeros(9, device=cuda),
+                  torch.zeros(9, dtype=torch.float64, device=cuda),
+                  torch.zeros(9, dtype=torch.float64, device=cuda),
+                  1.0, 0.1, 160, 16, 4)
 
 
 # ---- streaming (streaming.py) ----------------------------------------------
