@@ -44,6 +44,13 @@ Phases, one or more lines each:
      kernel and agree (> 120 dB);
   6. [k9] the EQ finish kernel vs its plain version at the cat path's and
      the frames path's serving shapes and at a U % 4 != 0 plan (441/480);
+     [states] the state solve's kernels (``kernels/group_states``: the
+     block-Toeplitz scan, and its entry mode s_in + sigma T_g) vs their
+     plain versions (the dense product, the einsum) at the serve cell's
+     shape, the frames route's strided column slice, the slider's d = 12,
+     a stream step at FL 12288, G = 1 at K = 18,000 and a one-band d = 2
+     (> 120 dB and max abs err <= 1e-5 * max|ref|); every path below that
+     launches K9 must launch both;
   7. [k7] K7 (one pass up to N = 32768, two above) vs its plain version
      and float64 np.fft.rfft at one row of every N from 16384 to 524288,
      and vs its plain version at the spectrogram's (5168, 16384) frames,
@@ -237,7 +244,12 @@ two-pass launcher, each of which starts both passes, as the JAX K8's two
 frames kernel through their entry points); ``bound_ms`` is the larger of
 the operations over the H100's peak for their type and the bytes (each
 input read once, each output written once) over 3.35 TB/s, from this
-run's shapes.  The windowed FIR (K1 and the frames rows) counts three
+run's shapes; the state solve's rows (which replace no TPU kernel: they
+name the JAX package's dense product and einsum) count the scan's float64
+multiply-adds (``chunk_multiply_adds``) at the 34 TFLOP/s of float64
+outside the tensor cores and the entry's fp32 d a value, their ``ms``
+device time (``measure_device``) and their ``library_ms`` the one cuBLAS
+call each replaces.  The windowed FIR (K1 and the frames rows) counts three
 TF32 products a multiply-add (its fp32-accurate split) at 495 TFLOP/s
 dense TF32, the [time] line adds its fp32 SIMT bound; the rest count
 fp32 operations at 67 TFLOP/s (an FMA is 2; an rfft 2.5 N log2 N a row;
@@ -287,6 +299,7 @@ PEAK_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores (data sheet)
 PEAK_TF32 = 495e12      # H100 SXM dense TF32 on the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s (data sheet)
 PEAK_FP64 = 67e12       # H100 SXM float64 on the tensor cores (data sheet)
+PEAK_FP64_SIMT = 34e12  # H100 SXM float64 outside the tensor cores (data sheet)
 DEVICE = "cuda"
 
 
@@ -454,6 +467,9 @@ def phase_build() -> None:
     from dsp_audio_project_tpu_torch.kernels.fir_class import (
         _LAUNCHERS as FIR_CAT,
     )
+    from dsp_audio_project_tpu_torch.kernels.group_states import (
+        _LAUNCHERS as GROUP_STATES,
+    )
     from dsp_audio_project_tpu_torch.kernels.rfft import (
         _LAUNCHERS as RFFT,
     )
@@ -464,7 +480,8 @@ def phase_build() -> None:
     libs = (("fir_cat", FIR_CAT), ("eq_finish", EQ_FINISH),
             ("rfft_four_step", RFFT), ("rfft_two_pass", TWO_PASS),
             ("iir_block", IIR_BLOCK),
-            ("rfft_butterfly", BUTTERFLY), ("eq_design", EQ_DESIGN))
+            ("rfft_butterfly", BUTTERFLY), ("eq_design", EQ_DESIGN),
+            ("group_states", GROUP_STATES))
     t0 = time.perf_counter()
     _build.build([name for name, _ in libs])
     for name, launchers in libs:
@@ -946,6 +963,120 @@ def phase_k9(pipe, k1: dict, k3: dict) -> dict:
             "lib": None, "bound": b}
 
 
+def _states_cases(pipe, inj_serve: torch.Tensor) -> list:
+    """(name, inj, toe, A^block) at the shapes the main paths give the
+    state solve:
+    the serve cell's cat route, the frames route's strided column slice,
+    the slider (d = 12), a stream step at FL 12288, the dynamic builder at
+    one group a block over 60 s (G = 1, K = 18,000) and a one-band EQ (d =
+    2).  Injections other than the serve's are seeded normals."""
+    from dsp_audio_project_tpu_torch import EQConfig
+    from dsp_audio_project_tpu_torch.ops.eq import (
+        block_tables, make_block_operators,
+    )
+
+    rng = np.random.default_rng(17)
+    B, F_, d = inj_serve.shape
+    G = 128
+    K = F_ // G
+    tabs = pipe._tables(FS, K)
+    toe, a_blk = tabs["group_toeplitz"], tabs["state_corr"]
+    n = int(SECONDS * FS)
+
+    def normal(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=DEVICE)
+
+    dyn = pipe.dynamic_eq_operators(np.asarray(DYN_GAINS[0], np.float32),
+                                    FS, n, builder="host")
+    dyn1 = pipe.dynamic_eq_operators(np.asarray(DYN_GAINS[0], np.float32),
+                                     FS, n, groups_per_block=1,
+                                     builder="host")
+    fs_out = pipe.config.src.output_rate(FS)
+    one = make_block_operators(
+        EQConfig.from_gains({"Bass": 6}).active_bands(fs_out), fs_out,
+        pipe.config.eq.q, G * 160, 160)
+    one_tabs = block_tables(one, DEVICE, 16)
+    _, _, K_dyn1 = pipe.dynamic_eq_geometry(FS, n, groups_per_block=1)
+    vp = -(-(160 + d) // 4) * 4
+    return [
+        ("serve cat route", inj_serve.reshape(B, K, G, d), toe, a_blk),
+        (f"frames route (column slice, row stride {vp})",
+         normal(B, K, G, vp)[..., 160:160 + d], toe, a_blk),
+        ("slider (d = 12)", normal(1, K, G, 12), dyn.toe, dyn.A_blk),
+        ("stream step (FL 12288)", normal(BATCH, 12288 // G, G, d), toe,
+         a_blk),
+        (f"G = 1, K = {K_dyn1}", normal(1, K_dyn1, 1, 12), dyn1.toe,
+         dyn1.A_blk),
+        ("one band (d = 2)", normal(2, 16, G, 2), one_tabs["group_toeplitz"],
+         one_tabs["state_corr"]),
+    ]
+
+
+def phase_states(pipe, k1: dict) -> tuple[dict, dict]:
+    """[states]: the state solve's kernels (``kernels/group_states``: the
+    block-Toeplitz scan and its entry mode) against their plain versions
+    (the dense product and the einsum) at the main paths' shapes, > 120 dB
+    and max abs err <= 1e-5 * max|ref|; sigma from the carry where the
+    path has one.  Returns the record entries of both."""
+    import importlib
+
+    from dsp_audio_project_tpu_torch.ops.eq import _carry_states
+
+    gs = importlib.import_module(
+        "dsp_audio_project_tpu_torch.kernels.group_states")
+    errs = {"s": 0.0, "e": 0.0}
+    for name, inj, toe, a_blk in _states_cases(pipe, k1["inj"]):
+        K, G, d = inj.shape[-3:]
+        s_in, end = gs.group_states(inj, toe)
+        ref_in, ref_end = gs.group_states_plain(inj, toe)
+        sigma = _carry_states(ref_end, a_blk)
+        s_true = gs.group_entry_states(ref_in, sigma, toe)
+        ref_true = gs.group_entry_states_plain(ref_in, sigma, toe)
+        torch.cuda.synchronize()
+        what = f"{name} {tuple(inj.shape)}"
+        if G > 1:
+            errs["s"] = max(errs["s"], compare("states", f"s_in, {what}",
+                                               s_in, ref_in))
+        elif not torch.equal(s_in, ref_in):
+            raise RuntimeError("[states] s_in at G = 1 is not all zeros")
+        errs["s"] = max(errs["s"], compare("states", f"end states, {what}",
+                                           end, ref_end))
+        errs["e"] = max(errs["e"], compare("states", f"s_true, {what}",
+                                           s_true, ref_true))
+    # The serve cell's shape, timed.
+    B, F_, d = k1["inj"].shape
+    inj = k1["inj"].reshape(B, F_ // 128, 128, d)
+    tabs = pipe._tables(FS, F_ // 128)
+    toe = tabs["group_toeplitz"]
+    rows, G = B * F_ // 128, 128
+    s_in, end = gs.group_states(inj, toe)
+    sigma = _carry_states(end, tabs["state_corr"], tabs.get("carry_w"))
+    sig2, flat = sigma.reshape(rows, d), s_in.reshape(rows, G * d)
+    macs = rows * gs.chunk_multiply_adds(G, d)
+    # The scan sums in float64 on the CUDA cores; it reads the taps T_0
+    # .. T_4 and T_8 .. T_64.
+    states_bound = bound(2.0 * macs, 4.0 * (2 * inj.numel() + end.numel()
+                                            + (gs.CHUNK + 5) * d * d),
+                         PEAK_FP64_SIMT)
+    entry_bound = bound(2.0 * rows * G * d * d,
+                        4.0 * (2 * s_in.numel() + sigma.numel() + G * d * d))
+    log(f"[states] serve shape: {rows} block rows of G = {G}, d = {d}; "
+        f"chunk c = {gs.CHUNK}; the scan's {2.0 * macs / 1e9:.4f} "
+        f"GFLOP against the dense product's "
+        f"{2.0 * rows * (G * d) ** 2 / 1e9:.3f}")
+    return ({"max_abs_err": errs["s"],
+             "kern": lambda: gs.group_states(inj, toe),
+             "plain": lambda: gs.group_states_plain(inj, toe),
+             "lib": lambda: inj.reshape(rows, G * d) @ toe,
+             "bound": states_bound, "device_timed": True},
+            {"max_abs_err": errs["e"],
+             "kern": lambda: gs.group_entry_states(s_in, sigma, toe),
+             "plain": lambda: gs.group_entry_states_plain(s_in, sigma, toe),
+             "lib": lambda: torch.addmm(flat, sig2, toe[:d]),
+             "bound": entry_bound, "device_timed": True})
+
+
 def oracle_outputs(cfg, xs: np.ndarray) -> list:
     """Per signal: (y, z, [spectrum of x, y, z]) from the numpy oracle."""
     from dsp_audio_project_tpu_torch import oracle
@@ -1002,8 +1133,16 @@ def run_counted(fn):
     return out, launch_counts()
 
 
+# K9 reads the states of the state solve's two kernels wherever it runs.
+STATE_KERNELS = ("group_states", "group_entry_states")
+
+
 def require(tag: str, counts: dict, names, at_least: int = 1) -> None:
-    """Fail unless each kernel of ``names`` launched ``at_least`` times."""
+    """Fail unless each kernel of ``names`` launched ``at_least`` times
+    (with K9, the state solve's kernels too)."""
+    names = tuple(names)
+    if "eq_finish" in names:
+        names += STATE_KERNELS
     log(f"[{tag}] launches: {counts}")
     missing = [n for n in names if counts[n] < at_least]
     if missing:
@@ -2257,7 +2396,7 @@ def phase_stream_kernels(cfg, xs: np.ndarray) -> dict:
     sigma_local, e_shard = carry.shard_end(e, t)
     sigma = carry.cross_shard(sigma_local, e_shard[None],
                               torch.zeros(BATCH, d, device=DEVICE), 0, t)
-    st = teq._entry_states(s_in, sigma, t["group_pows"])
+    st = teq._entry_states(s_in, sigma, t["group_toeplitz"])
     y0g = y0.reshape(BATCH, K, -1, U)
     errs["k9"] = compare("stream", f"K9 at a step's {tuple(y0g.shape)}",
                          eq_finish(y0g, st, t["group_out"]),
@@ -3228,8 +3367,9 @@ def add_runs(runs: list) -> dict:
 
 
 class LaunchChecker:
-    """Holds K1, the frames kernel, K9 and K2 against their plain versions
-    at the launches a path makes.  Inside ``on()``, each launch made
+    """Holds K1, the frames kernel, K9, K2, the device builder and the
+    state solve's two kernels against their plain versions at the
+    launches a path makes.  Inside ``on()``, each launch made
     outside a CUDA-graph capture (a captured launch replays a geometry its
     warm-up ran eagerly) is followed by its plain version on the same
     inputs, under ``compare``'s bounds (> 120 dB, K2 > 110 dB, and max abs
@@ -3238,7 +3378,8 @@ class LaunchChecker:
     launch no kernel, so the counts are untouched.  ``errs``: max abs err
     by record row."""
 
-    ROWS = ("k1", "k3", "k9", "k2", "eq_design")
+    ROWS = ("k1", "k3", "k9", "k2", "eq_design", "group_states",
+            "group_entry")
 
     def __init__(self, tag: str):
         self.tag = tag
@@ -3291,8 +3432,10 @@ class LaunchChecker:
             "dsp_audio_project_tpu_torch.kernels.rfft")
         ed = importlib.import_module(
             "dsp_audio_project_tpu_torch.kernels.eq_design")
+        gs = importlib.import_module(
+            "dsp_audio_project_tpu_torch.kernels.group_states")
         real = (fc._launch, fc._launch_frames, ef._launch, rf._launch,
-                ed._launch)
+                ed._launch, gs._launch_states, gs._launch_entry)
 
         def k1(x, g2, y0, inj, n, f_pad, W, V, P, s, pad_left):
             real[0](x, g2, y0, inj, n, f_pad, W, V, P, s, pad_left)
@@ -3342,20 +3485,59 @@ class LaunchChecker:
                 card = gains.device.index
                 self.by_card[card] = self.by_card.get(card, 0) + 1
 
+        def states(inj4, toe, s_in, end):
+            # gs.states_agree: > 120 dB against plain, or else >= 100 dB
+            # against the float64 product (the dense float32 product is
+            # itself below 120 dB there).
+            real[5](inj4, toe, s_in, end)
+            if not self._fresh(("group_states", tuple(inj4.shape),
+                                inj4.stride())):
+                return
+            ref_in, ref_end = gs.group_states_plain(inj4, toe)
+            for got, ref in ((s_in.reshape(ref_in.shape), ref_in),
+                             (end.reshape(ref_end.shape), ref_end)):
+                ok, what = gs.states_agree(got, ref, inj4, toe)
+                if not ok:
+                    raise RuntimeError(
+                        f"[{self.tag}] group_states at {tuple(inj4.shape)} "
+                        f"disagrees with its plain version: {what}")
+                top = float(ref.abs().max())
+                self.errs["group_states"] = max(
+                    self.errs["group_states"], float((got - ref).abs().max()))
+                self.worst_db["group_states"] = min(
+                    self.worst_db["group_states"],
+                    snr_db(ref, got) if top > 0.0 else math.inf)
+                if "float64" in what:
+                    log(f"[{self.tag}] group_states at {tuple(inj4.shape)}: "
+                        f"{what}")
+            self.held["group_states"] += 1
+            card = s_in.device.index
+            self.by_card[card] = self.by_card.get(card, 0) + 1
+
+        def entry(s_in, sigma, toe, s_true):
+            real[6](s_in, sigma, toe, s_true)
+            if self._fresh(("group_entry", tuple(s_in.shape))):
+                self._hold("group_entry", f"group_entry_states at "
+                           f"{tuple(s_in.shape)}",
+                           (s_true, gs.group_entry_states_plain(
+                               s_in, sigma, toe)))
+
         self.every = every
         (fc._launch, fc._launch_frames, ef._launch, rf._launch,
-         ed._launch) = (k1, k3, k9, k2, design)
+         ed._launch, gs._launch_states, gs._launch_entry) = (
+            k1, k3, k9, k2, design, states, entry)
         try:
             yield self
         finally:
             (fc._launch, fc._launch_frames, ef._launch, rf._launch,
-             ed._launch) = real
+             ed._launch, gs._launch_states, gs._launch_entry) = real
 
     def report(self, what: str) -> None:
         log(f"[{self.tag}] {what}: launches held against their plain "
             "versions (bound 120 dB, max abs err <= 1e-5 * max|ref|; "
             "eq_design: each table within one float32 ulp of its largest "
-            "magnitude, its dB the group Toeplitz triangle's): " +
+            "magnitude, its dB the group Toeplitz triangle's; group_states: "
+            "or else >= 100 dB against the float64 product): " +
             ", ".join(f"{row} {self.held[row]} (worst {self.worst_db[row]:.1f}"
                       f" dB, max abs err {self.errs[row]:.3e})"
                       for row in self.ROWS))
@@ -3404,8 +3586,10 @@ def phase_bench() -> tuple[dict, dict]:
     checker = LaunchChecker("bench")
     stream_step_checked(bench.serving_config(), bench.STREAM_FL, checker)
     checker.report(f"the stream's step at FL {bench.STREAM_FL}")
-    if not (checker.held["k1"] and checker.held["k9"]):
-        raise RuntimeError("[bench] the stream step held no K1 or K9 launch")
+    if not all(checker.held[row] for row in ("k1", "k9", "group_states",
+                                               "group_entry")):
+        raise RuntimeError("[bench] the stream step held no K1, K9 or state "
+                           "solve launch")
     log("[bench] " + json.dumps(rec))
     return counts, checker.errs
 
@@ -3510,6 +3694,7 @@ def main() -> None:
     k2c = phase_k2c(x)
     k3, k3_routes, k3_counts = phase_k3(pipe, x, small)
     k9 = phase_k9(pipe, k1, k3)
+    gs_states, gs_entry = phase_states(pipe, k1)
     del k1["y0"], k1["inj"], k3["y"]
     k7 = phase_k7(x)
     k8 = phase_k8(x)
@@ -3543,7 +3728,8 @@ def main() -> None:
                  scripts_errs):
         for tag, err in errs.items():
             k = {"k1": k1, "k3": k3, "k9": k9, "k2": k2,
-                 "eq_design": dyn_checks["eq_design"]}[tag]
+                 "eq_design": dyn_checks["eq_design"],
+                 "group_states": gs_states, "group_entry": gs_entry}[tag]
             k["max_abs_err"] = max(k["max_abs_err"], err)
     for tag, err in phase_stream_kernels(cfg, xs).items():
         k = {"k1": k1, "k3": k3, "k9": k9, "k2": k2}[tag]
@@ -3586,6 +3772,7 @@ def main() -> None:
 
     kernels = {"k1": k1, "k2": k2, "k3": k3, "k9": k9, "k2c": k2c,
                "k7": k7, "k8": k8, "e2a": e2a, "e2b": e2b, "e7": e7, "e6": e6,
+               "group_states": gs_states, "group_entry": gs_entry,
                **k3_routes, **dyn_checks}
     timings = {}
     for tag, k in kernels.items():
@@ -3667,6 +3854,12 @@ def main() -> None:
         # ops, whose torch port it replaces.
         ("eq_design", "eq_design", "csrc/eq_design.cu",
          "dsp_audio_project_tpu/ops/eq_dynamic.py:228"),
+        # Replace no TPU kernel: the state solve's dense product and the
+        # entry states' einsum, which the JAX package leaves to XLA.
+        ("group_states", "group_states", "csrc/group_states.cu",
+         "dsp_audio_project_tpu/ops/eq.py:106"),
+        ("group_entry", "group_entry_states", "csrc/group_states.cu",
+         "dsp_audio_project_tpu/ops/eq.py:186"),
     )
     record = {"kernels": [
         {"name": name, "route": "cuda",

@@ -35,6 +35,7 @@ Kernels that replace no TPU kernel:
 | kernel | what it replaces | file |
 |--------|------------------|------|
 | eq_design | the device gain builder's ~220 float64 torch ops (ops/eq_dynamic.build_dynamic_operators; the JAX package's df32 ops, ops/eq_dynamic.py:228 _dynamic_operators) | eq_design.py + csrc/eq_design.cu (CUDA, three launches: one block designs the bands and squares the powers' heads, a block a power multiplies heads, a block a row writes the triangles) |
+| group_states, group_entry_states | the EQ's state solve on cuBLAS: the dense (B K, G d) @ (G d, G d) product against the block-Toeplitz table and the entry states' einsum (the JAX package leaves them to XLA, ops/eq.py:106 _grouped_states, :186) | group_states.py + csrc/group_states.cu (CUDA cores, float32 in and out, float64 sums: a chunked scan over the table's taps, and an entry mode after the carry) |
 
 Times on the card are in PERF.md.
 """
@@ -59,6 +60,7 @@ from .fir_class import (
     polyphase_fir_class_rect_frames,
 )
 from .fir_shear import polyphase_fir_shear_frames
+from .group_states import group_entry_states, group_states
 from .rfft import rfft_four_step_complex, rfft_four_step_magnitude
 from .rfft_two_pass import rfft_four_step_tall, rfft_two_level
 
@@ -69,7 +71,7 @@ KERNELS = (polyphase_fir_class_rect_cat, fir_frames_kernel, eq_finish,
            polyphase_fir_dma, polyphase_fir_rect_splitbank,
            polyphase_fir_rect_rowdma, polyphase_fir_class_frames,
            polyphase_fir_shear_frames, polyphase_fir_class_flat,
-           polyphase_fir, eq_design)
+           polyphase_fir, eq_design, group_states, group_entry_states)
 
 
 def launch_counts() -> dict:

@@ -51,7 +51,8 @@ _LAUNCHERS = {
 _CARRY_DENSE_MAX_KD = 2048
 
 MAX_BANDS = 8              # the kernels' instantiations: d = 2 .. 16
-MAX_SIDE = 1 << 14         # U, G, K: keeps every index of the kernels in int
+MAX_SIDE = 1 << 14         # U, G and a dense carry's K: keeps every index
+                           # of the kernels in int
 
 
 def _dense_carry(K: Optional[int], d: int) -> bool:
@@ -202,7 +203,9 @@ def dynamic_operators_plain(gains_db: torch.Tensor, sin_w0: torch.Tensor,
 def cuda_layout(nb: int, U: int, G: int, K: Optional[int]) -> dict:
     """The kernels' geometry and buffer sizes for nb bands at (U, G, K),
     or ValueError where the CUDA route does not take the shape (nb above
-    ``MAX_BANDS``, U, G or K outside 1..``MAX_SIDE``).
+    ``MAX_BANDS``, U or G outside 1..``MAX_SIDE``, K below 1).  The kernels
+    read K only as ``K_dense``, which the dense carry's K d <= 2048 bounds,
+    so any K >= 1 (or None) is taken.
 
     ``K_dense``: K when the dense carry is built, else 0.  ``heads``: the
     powers P^(2^i) raised in a chain for each table (A, A^U, A^UG), the
@@ -212,10 +215,12 @@ def cuda_layout(nb: int, U: int, G: int, K: Optional[int]) -> dict:
     if not 1 <= nb <= MAX_BANDS:
         raise ValueError(f"the CUDA gain builder takes 1..{MAX_BANDS} bands "
                          f"(d <= {2 * MAX_BANDS}), got {nb}")
-    for name, v in (("U", U), ("G", G), ("K", K)):
-        if v is not None and not 1 <= v <= MAX_SIDE:
+    for name, v in (("U", U), ("G", G)):
+        if not 1 <= v <= MAX_SIDE:
             raise ValueError(f"the CUDA gain builder takes {name} in "
                              f"1..{MAX_SIDE}, got {v}")
+    if K is not None and K < 1:
+        raise ValueError(f"the CUDA gain builder takes K >= 1, got {K}")
     d = 2 * nb
     k_dense = K if _dense_carry(K, d) else 0
     heads = (U.bit_length(), G.bit_length(),

@@ -15,8 +15,11 @@ cut into blocks of G groups of U samples:
 4. readout:      z = clip(y0 + (s_in + A^{gU} sigma) @ group_out, -1, 1),
    one pass of K9 (kernels/eq_finish.py).
 
-Steps 1-3 are the glue the JAX package leaves to XLA; here they are plain
-torch products, in float32 with TF32 off (utils/precision).  Host tables
+Steps 1-3 are the glue the JAX package leaves to XLA.  Steps 1 and 3 are
+plain torch products, in float32 with TF32 off (utils/precision); step 2
+and the entry states s_in + A^{gU} sigma of step 4 are the block-Toeplitz
+scan of kernels/group_states.py (float64 sums on the CUDA cores; the dense
+float32 product and the einsum on a CPU tensor).  Host tables
 (float64 numpy) are copies of the JAX design code and are held bit-for-bit
 equal by the tests.  Entry points: ``equalize`` (flat signals, block 8192 /
 unroll 128 by default), ``equalize_frames`` (the frames path's (F, P)
@@ -40,6 +43,7 @@ import torch
 
 from ..config import EQConfig
 from ..kernels.eq_finish import eq_finish, eq_finish_plain
+from ..kernels.group_states import group_entry_states, group_states
 from ..kernels.experiments.iir import apply_rows, end_states_rows
 from ..utils.device import as_input
 from ..design.biquad import (
@@ -225,16 +229,9 @@ def carry_tables(ops: BlockOperators, device, K: int) -> dict:
 
 def _group_states(inj: torch.Tensor, toe: torch.Tensor):
     """Step 2 on (..., K, G, d) injections: (s_in (..., K, G, d), the
-    zero-init state entering each group, and end_states (..., K, d))."""
-    K, G, d = inj.shape[-3:]
-    lead = inj.shape[:-3]
-    if toe.shape != (G * d, G * d):
-        raise ValueError(f"group_toeplitz {tuple(toe.shape)} != {(G*d, G*d)}")
-    s_tail = (inj.reshape(lead + (K, G * d)) @ toe).reshape(lead + (K, G, d))
-    s_in = torch.cat(
-        [s_tail.new_zeros(lead + (K, 1, d)), s_tail[..., : G - 1, :]], dim=-2
-    )
-    return s_in, s_tail[..., G - 1, :]
+    zero-init state entering each group, and end_states (..., K, d)); the
+    block-Toeplitz scan of ``kernels/group_states.py`` on a CUDA tensor."""
+    return group_states(inj, toe)
 
 
 def _true_states(inj: torch.Tensor, tables: Mapping[str, torch.Tensor],
@@ -245,19 +242,20 @@ def _true_states(inj: torch.Tensor, tables: Mapping[str, torch.Tensor],
     group, end_states (..., K, d), sigma (..., K, d)).  ``sigma0``: the
     incoming state of block 0 (zero by default).
     """
-    s_in, end_states = _group_states(inj, tables["group_toeplitz"])
+    toe = tables["group_toeplitz"]
+    s_in, end_states = _group_states(inj, toe)
     sigma = _carry_states(end_states, tables["state_corr"],
                           tables.get("carry_w"), sigma0)
-    return (_entry_states(s_in, sigma, tables["group_pows"]), end_states,
-            sigma)
+    return _entry_states(s_in, sigma, toe), end_states, sigma
 
 
 def _entry_states(s_in: torch.Tensor, sigma: torch.Tensor,
-                  group_pows: torch.Tensor) -> torch.Tensor:
+                  toe: torch.Tensor) -> torch.Tensor:
     """s_true = s_in + A^{gU} sigma: the true state entering each group,
     (..., K, G, d) contiguous, from the zero-init group states and the true
-    block-initial states sigma (..., K, d)."""
-    return s_in + torch.einsum("gef,...kf->...kge", group_pows, sigma)
+    block-initial states sigma (..., K, d); the powers are the group
+    Toeplitz table's taps (the kernel's entry mode on a CUDA tensor)."""
+    return group_entry_states(s_in, sigma, toe)
 
 
 def _grouped_parts(x_g: torch.Tensor, tables: Mapping[str, torch.Tensor]):
@@ -280,7 +278,7 @@ def _grouped_finish(y0: torch.Tensor, s_in: torch.Tensor,
     readout and the clip as one K9 pass.  Clipping is memoryless, so a
     stream that clips each step equals the JAX package's clip after its
     finish."""
-    return eq_finish(y0, _entry_states(s_in, sigma, tables["group_pows"]),
+    return eq_finish(y0, _entry_states(s_in, sigma, tables["group_toeplitz"]),
                      tables["group_out"])
 
 
@@ -299,7 +297,7 @@ def _grouped_run(
     y0, s_in, end_states = _grouped_parts(x_g, tables)
     sigma = _carry_states(end_states, tables["state_corr"],
                           tables.get("carry_w"), sigma0)
-    s_true = _entry_states(s_in, sigma, tables["group_pows"])
+    s_true = _entry_states(s_in, sigma, tables["group_toeplitz"])
     return (eq_finish(y0, s_true, tables["group_out"]), s_true, end_states,
             sigma)
 

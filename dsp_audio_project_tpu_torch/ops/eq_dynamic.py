@@ -58,7 +58,7 @@ from ..kernels.eq_design import _dense_carry, _lower_triangle, eq_design
 from ..kernels.eq_finish import eq_finish
 from ..kernels.fir_class import plan_operator
 from ..utils.device import as_input, default_device, device_tables
-from .eq import _carry_states, _group_states
+from .eq import _carry_states, _entry_states, _group_states
 
 
 class DynOperators(NamedTuple):
@@ -342,7 +342,7 @@ def _dyn_states(inj: torch.Tensor, ops: DynOperators) -> torch.Tensor:
     injections (..., K, G, d)."""
     s_in, e_states = _group_states(inj, ops.toe)
     sigma = dyn_block_carry(e_states, ops.carry_w, ops.A_blk)
-    return s_in + torch.einsum("gef,...kf->...kge", ops.pows_g, sigma)
+    return _entry_states(s_in, sigma, ops.toe)
 
 
 def dyn_frames_weights(ops: DynOperators) -> torch.Tensor:

@@ -627,7 +627,7 @@ class ShardedStreamProcessor:
         """The step's device tables, named as the static BlockOperators
         fields where they have one (so ``ops/eq``'s grouped passes read
         them): the SRC operator ``g`` (or K1's ``g2``), ``w_frames``,
-        ``group_toeplitz``, ``group_pows``, ``group_out``, ``state_corr``
+        ``group_toeplitz``, ``group_out``, ``state_corr``
         (A^block), ``carry_w`` (the local carry triangle, where it is
         dense), and the cross-shard tables ``pk``, ``weights``, ``w_out``,
         ``pow_nb``."""
@@ -646,8 +646,8 @@ class ShardedStreamProcessor:
         package's step builds them (streaming.py:605-632)."""
         ops, K_loc = self._ops, self._K_loc
         host = {
-            "group_toeplitz": ops.group_toeplitz, "group_pows": ops.group_pows,
-            "group_out": ops.group_out, "state_corr": ops.state_corr,
+            "group_toeplitz": ops.group_toeplitz, "group_out": ops.group_out,
+            "state_corr": ops.state_corr,
             **carry.cross_shard_tables(ops.state_corr, self._nb, K_loc),
         }
         if K_loc <= eq_ops._CARRY_ALLPAIRS_MAX:
@@ -672,8 +672,8 @@ class ShardedStreamProcessor:
         )
         self._dops = dops
         o = dops.ops
-        tab = {"group_toeplitz": o.toe, "group_pows": o.pows_g,
-               "group_out": o.group_out, "state_corr": o.A_blk,
+        tab = {"group_toeplitz": o.toe, "group_out": o.group_out,
+               "state_corr": o.A_blk,
                "pk": dops.pk, "weights": dops.weights, "w_out": dops.w_out,
                "pow_nb": dops.pow_nb}
         if dops.carry_loc is not None:
@@ -939,7 +939,7 @@ class ShardedStreamProcessor:
             x_g = F.pad(y, (0, K * blk - n)).reshape(y.shape[:-1] + (K, G, U))
             tab = {"w_frames": dyn_frames_weights(o),
                    "group_toeplitz": o.toe, "state_corr": o.A_blk,
-                   "group_pows": o.pows_g, "group_out": o.group_out}
+                   "group_out": o.group_out}
             y0, s_in, e = eq_ops._grouped_parts(x_g, tab)
             sigma = eq_ops._carry_states(
                 e, o.A_blk, None,

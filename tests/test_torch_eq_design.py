@@ -13,7 +13,8 @@ where the wrapper runs its plain version.
   ``test_device_builder_matches_host_builder``.
 * carry_w is None where the dense carry is not built (K = 1, K d > 2048).
 * The CUDA route's shape limits raise through ``cuda_layout``, without a
-  card; the wrapper's argument checks raise on the CPU.
+  card, and K past the dense carry is no limit; the wrapper's argument
+  checks raise on the CPU.
 
 The kernels themselves run only on the card: tests/test_torch_gpu.py holds
 them against the plain version there.
@@ -227,7 +228,7 @@ def test_cuda_layout_at_the_slider_geometry():
     (0, 160, 128, 144, "bands"),
     (6, 0, 128, 144, "U"),
     (6, 160, MAX_SIDE + 1, 144, "G"),
-    (6, 160, 128, MAX_SIDE + 1, "K"),
+    (6, 160, 128, 0, "K"),
 ])
 def test_cuda_layout_raises_beyond_the_kernels(nb, U, G, K, match):
     with pytest.raises(ValueError, match=match):
@@ -241,6 +242,15 @@ def test_cuda_layout_raises_beyond_the_kernels(nb, U, G, K, match):
         out = eq_design(torch.zeros(9), torch.as_tensor(s),
                         torch.as_tensor(c), cfg.q, 0.1, 16, 4, 3)
         assert out[0].shape == (16, 18) and out[6].shape == (54, 54)
+
+
+@pytest.mark.parametrize("K", [MAX_SIDE + 1, 18000, 1 << 20])
+def test_cuda_layout_takes_any_K_past_the_dense_carry(K):
+    """The kernels read K only as K_dense (0 once K d > 2048), so a long
+    upload (K = 18,000: 60 s at one group a block) is no error."""
+    lay = cuda_layout(6, 160, 128, K)
+    assert lay["K_dense"] == 0 and lay["heads"] == (8, 8, 0)
+    assert lay["table_floats"] == 129 * 144
 
 
 def test_wrapper_checks_its_arguments():

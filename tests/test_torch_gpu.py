@@ -37,7 +37,17 @@ kernels) against its plain version for five gain sets at five geometries
 2048): every table within one float32 ulp of its largest magnitude, two
 launches bit for bit, one capture replayed for two gain vectors equal to
 the eager call, ``forward_frames_dynamic`` >= 120 dB against the same
-forward on the plain version's operators, and a build failure raises.
+forward on the plain version's operators, and a build failure raises;
+a 60 s upload at one group a block (K = 18,432) builds bit for bit.  The
+state solve (``kernels/group_states``): the scan and its entry mode
+against the dense product and the einsum at the main paths' shapes (the
+serve cell's, the frames route's column slice, the slider's d = 12, a
+stream step, G = 1 at K = 18,432, d = 2) and past one tile of groups, >
+120 dB and max abs err <= 1e-5 * max|ref|, two launches bit for bit; at
+config_matrix's P = 1 plans, where the dense float32 product is itself
+below 120 dB against float64, >= 100 dB against the float64 product
+(``states_agree``); the cat route's solve captured in a CUDA graph and
+replayed; a build failure raises.
 Streaming: each route of ``ShardedStreamProcessor`` on the
 card vs the same processor on the CPU (> 110 dB), its kernels launched and
 its step captured once; the graph replay bit for bit against the eager
@@ -73,6 +83,7 @@ fails raises; replayed kernels show in a device profile.
 from __future__ import annotations
 
 import functools
+import importlib
 
 import numpy as np
 import pytest
@@ -1054,6 +1065,223 @@ def test_eq_design_raises_when_the_kernel_cannot_build(cuda, monkeypatch):
                   torch.zeros(9, dtype=torch.float64, device=cuda),
                   torch.zeros(9, dtype=torch.float64, device=cuda),
                   1.0, 0.1, 160, 16, 4)
+
+
+# ---- the state solve (kernels/group_states.py) -----------------------------
+
+# The shapes the main paths give the state solve: (batch, K, G, d) and the
+# table's source.
+STATE_SHAPES = {
+    "serve": ((8, 144, 128, 10), "static"),
+    "slider": ((1, 144, 128, 12), "dynamic"),
+    "stream step": ((8, 96, 128, 10), "static"),
+    "one group a block": ((1, 18432, 1, 12), "dynamic"),
+    "one band": ((2, 16, 128, 2), "one band"),
+    "column slice": ((8, 144, 128, 10), "strided"),
+}
+
+
+def state_case(name, device):
+    """(inj, toe, A^block) for a ``STATE_SHAPES`` entry: seeded normal
+    injections, the port's own tables."""
+    from dsp_audio_project_tpu_torch.ops.eq import block_tables
+
+    (B, K, G, d), source = STATE_SHAPES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    fs_out = 48000
+    if source == "dynamic":
+        ops = pt.build_dynamic_operators(
+            torch.tensor(DYN_GAINS[0], device=device), fs_out, pt.EQConfig(),
+            160, G)
+        toe, a_blk = ops.toe, ops.A_blk
+    else:
+        gains = {"Bass": 6} if source == "one band" else GAINS
+        cfg = pt.EQConfig.from_gains(gains)
+        ops = make_block_operators(cfg.active_bands(fs_out), fs_out, cfg.q,
+                                   G * 160, 160)
+        t = block_tables(ops, device, K)
+        toe, a_blk = t["group_toeplitz"], t["state_corr"]
+    width = 172 if source == "strided" else d
+    inj = torch.as_tensor(rng.standard_normal((B, K, G, width)).astype(
+        np.float32), device=device)
+    if source == "strided":
+        inj = inj[..., 160:160 + d]
+    return inj, toe, a_blk
+
+
+def _band_trig_tables(cfg, fs):
+    from dsp_audio_project_tpu_torch.ops.eq_dynamic import _band_trig
+
+    return _band_trig(fs, cfg.band_centers, cfg.nyquist_safety)
+
+
+def hold_states(got, ref):
+    """> 120 dB and max abs err <= 1e-5 * max|ref|, or equal where the
+    reference is all zeros (s_in at G = 1)."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    top = float(ref.abs().max())
+    if top == 0.0:
+        assert torch.equal(got, ref)
+        return
+    assert snr_db(host(ref), host(got)) > 120
+    assert float((got - ref).abs().max()) <= 1e-5 * top
+
+
+@pytest.mark.parametrize("name", list(STATE_SHAPES))
+def test_group_states_kernel_matches_plain(cuda, name):
+    """The scan and its entry mode, one launch each counted, against the
+    dense product and the einsum; a second launch bit for bit."""
+    from dsp_audio_project_tpu_torch.kernels.group_states import (
+        group_entry_states_plain, group_states_plain,
+    )
+    from dsp_audio_project_tpu_torch.ops.eq import _carry_states
+
+    inj, toe, a_blk = state_case(name, cuda)
+    reset_launch_counts()
+    s_in, end = pt.kernels.group_states(inj, toe)
+    again = pt.kernels.group_states(inj, toe)
+    ref_in, ref_end = group_states_plain(inj, toe)
+    sigma = _carry_states(ref_end, a_blk)
+    s_true = pt.kernels.group_entry_states(ref_in, sigma, toe)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["group_states"] == 2 and counts["group_entry_states"] == 1
+    hold_states(s_in, ref_in)
+    hold_states(end, ref_end)
+    hold_states(s_true, group_entry_states_plain(ref_in, sigma, toe))
+    assert torch.equal(s_in, again[0]) and torch.equal(end, again[1])
+
+
+def test_group_states_ragged_tiles(cuda):
+    """G past one tile of 128 groups, and not a multiple of it or of the
+    chunk: the carry between tiles."""
+    from dsp_audio_project_tpu_torch.kernels.group_states import (
+        group_states_plain,
+    )
+
+    cfg = pt.EQConfig.from_gains(GAINS)
+    for G in (100, 300):
+        ops = make_block_operators(cfg.active_bands(48000), 48000, cfg.q,
+                                   G * 32, 32)
+        toe = torch.as_tensor(np.asarray(ops.group_toeplitz, np.float32),
+                              device=cuda)
+        rng = np.random.default_rng(G)
+        inj = torch.as_tensor(rng.standard_normal((3, 5, G, 10)).astype(
+            np.float32), device=cuda)
+        got = pt.kernels.group_states(inj, toe)
+        want = group_states_plain(inj, toe)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            hold_states(a, b)
+
+
+@pytest.mark.parametrize("L,M", [(1, 4), (2, 8), (1, 5), (1, 6)])
+def test_group_states_where_the_float32_product_is_inexact(cuda, L, M):
+    """config_matrix's P = 1 plans at low rates (poles close to 1 within a
+    group): the kernel holds against the plain version by
+    ``states_agree``, against the float64 product where the dense float32
+    product is itself too inexact for 120 dB."""
+    gs = importlib.import_module(
+        "dsp_audio_project_tpu_torch.kernels.group_states")
+
+    fs_out = pt.SRCConfig(L=L, M=M).output_rate(FS)
+    P = make_plan(L, M).P
+    cfg = pt.EQConfig.from_gains(GAINS)
+    ops = make_block_operators(cfg.active_bands(fs_out), fs_out, cfg.q,
+                               128 * P, P)
+    toe = torch.as_tensor(np.asarray(ops.group_toeplitz, np.float32),
+                          device=cuda)
+    rng = np.random.default_rng(L * 10 + M)
+    x_g = torch.as_tensor(rng.standard_normal((1, 88, 128, P)).astype(
+        np.float32), device=cuda)
+    inj = x_g @ torch.as_tensor(np.asarray(ops.group_in, np.float32),
+                                device=cuda)
+    got = gs.group_states(inj, toe)
+    want = gs.group_states_plain(inj, toe)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        ok, what = gs.states_agree(a, b, inj, toe)
+        assert ok, what
+
+
+def test_true_states_in_a_cuda_graph(cuda):
+    """The cat route's solve (scan, cuBLAS carry, entry) captured once and
+    replayed on new injections: equal to the eager call bit for bit (or
+    >= 130 dB where the captured carry product takes another cuBLAS
+    algorithm, as in the dynamic graph tests)."""
+    from dsp_audio_project_tpu_torch.ops.eq import _true_states, block_tables
+
+    inj, _, _ = state_case("serve", cuda)
+    cfg = pt.EQConfig.from_gains(GAINS)
+    ops = make_block_operators(cfg.active_bands(48000), 48000, cfg.q,
+                               128 * 160, 160)
+    tabs = block_tables(ops, cuda, inj.shape[1])
+    buf = inj.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _true_states(buf, tabs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = _true_states(buf, tabs)[0]
+    for k in (1, 2):
+        buf.copy_(inj * k - 0.5)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = _true_states(buf, tabs)[0]
+        assert torch.equal(out, eager) or snr_db(host(eager), host(out)) >= 130
+
+
+def test_group_states_raise_when_the_kernel_cannot_build(cuda, monkeypatch):
+    inj, toe, _ = state_case("one band", cuda)
+
+    def refuse(name, launchers):
+        raise RuntimeError(f"build of {name} refused")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    with pytest.raises(RuntimeError, match="refused"):
+        pt.kernels.group_states(inj, toe)
+    with pytest.raises(RuntimeError, match="refused"):
+        pt.kernels.group_entry_states(inj, inj[..., 0, :].contiguous(), toe)
+    odd = torch.zeros(2, 4, 3, 3, device=cuda)
+    with pytest.raises(ValueError, match="d in"):
+        pt.kernels.group_states(odd, torch.eye(9, device=cuda))
+
+
+def test_dynamic_builder_takes_a_long_upload(cuda):
+    """60 s at one group a block (K = 18,432 > 16,384): the device builder
+    builds, bit for bit against its plain version on the same card, and
+    the frames forward on its operators (the state kernels at G = 1)
+    agrees with the same forward on the CPU (> 110 dB)."""
+    from dsp_audio_project_tpu_torch.kernels.eq_design import (
+        dynamic_operators_plain,
+    )
+
+    pipe, cpu = dyn_pipe(), dyn_pipe("cpu")
+    x = make_x(1, 60 * FS, seed=29)
+    n = x.shape[-1]
+    U, G, K = pipe.dynamic_eq_geometry(FS, n, groups_per_block=1)
+    assert G == 1 and K > 16384
+    g = torch.tensor(DYN_GAINS[0], device=cuda)
+    ops = pipe.dynamic_eq_operators(g, FS, n, groups_per_block=1,
+                                    builder="traced")
+    cfg = pt.EQConfig()
+    s, c = _band_trig_tables(cfg, 48000)
+    want = dynamic_operators_plain(
+        g, torch.as_tensor(s, device=cuda), torch.as_tensor(c, device=cuda),
+        cfg.q, cfg.bypass_threshold_db, U, G, K)
+    for a, b in zip(ops, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+    reset_launch_counts()
+    z, _ = pipe.forward_frames_dynamic_ops(x, ops, FS)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["group_states"] == 1 and counts["group_entry_states"] == 1
+    ops_c = cpu.dynamic_eq_operators(np.asarray(DYN_GAINS[0]), FS, n,
+                                     groups_per_block=1, builder="host")
+    z_c, _ = cpu.forward_frames_dynamic_ops(torch.as_tensor(x), ops_c, FS)
+    assert snr_db(host(z_c), host(z)) > 110
 
 
 # ---- streaming (streaming.py) ----------------------------------------------
