@@ -44,13 +44,19 @@ Phases, one or more lines each:
      kernel and agree (> 120 dB);
   6. [k9] the EQ finish kernel vs its plain version at the cat path's and
      the frames path's serving shapes and at a U % 4 != 0 plan (441/480);
-     [states] the state solve's kernels (``kernels/group_states``: the
-     block-Toeplitz scan, and its entry mode s_in + sigma T_g) vs their
-     plain versions (the dense product, the einsum) at the serve cell's
-     shape, the frames route's strided column slice, the slider's d = 12,
-     a stream step at FL 12288, G = 1 at K = 18,000 and a one-band d = 2
-     (> 120 dB and max abs err <= 1e-5 * max|ref|); every path below that
-     launches K9 must launch both;
+     [states] the state solve's kernels (``kernels/group_states``): the
+     carry route's ends kernel and solve kernel (the carry from
+     ``carry_w``'s first block row, s_true written once) and the split
+     route's zero-seed solve and entry kernel, vs their plain versions
+     (the dense product, the carry's product, the einsum) at the serve
+     cell's shape (also with an incoming state), the frames route's
+     strided column slice, the slider's d = 12, a stream step at FL
+     12288, G = 1 at K = 18,432 (split route only: no carry triangle) and
+     at K = 144, and a one-band d = 2 (``states_agree``: > 120 dB and max
+     abs err <= 1e-5 * max|ref|, or else >= 100 dB against the float64
+     chain); each kernel's registers, spills and blocks an SM
+     (``occupancy``); both routes timed at the serve shape; every path
+     below that launches K9 must launch the kernels of one route;
   7. [k7] K7 (one pass up to N = 32768, two above) vs its plain version
      and float64 np.fft.rfft at one row of every N from 16384 to 524288,
      and vs its plain version at the spectrogram's (5168, 16384) frames,
@@ -245,11 +251,13 @@ frames kernel through their entry points); ``bound_ms`` is the larger of
 the operations over the H100's peak for their type and the bytes (each
 input read once, each output written once) over 3.35 TB/s, from this
 run's shapes; the state solve's rows (which replace no TPU kernel: they
-name the JAX package's dense product and einsum) count the scan's float64
-multiply-adds (``chunk_multiply_adds``) at the 34 TFLOP/s of float64
-outside the tensor cores and the entry's fp32 d a value, their ``ms``
-device time (``measure_device``) and their ``library_ms`` the one cuBLAS
-call each replaces.  The windowed FIR (K1 and the frames rows) counts three
+name the JAX package's dense product, carry matmul and einsum) count the
+kernels' float64 multiply-adds (``ends_multiply_adds``,
+``solve_multiply_adds``, ``chunk_multiply_adds``) at the 34 TFLOP/s of
+float64 outside the tensor cores and the entry's fp32 d a value, their
+``ms`` device time (``measure_device``) and their ``library_ms`` one
+PyTorch call of the same function where there is one (the ends: the dense
+product's last block column; none for the solve).  The windowed FIR (K1 and the frames rows) counts three
 TF32 products a multiply-add (its fp32-accurate split) at 495 TFLOP/s
 dense TF32, the [time] line adds its fp32 SIMT bound; the rest count
 fp32 operations at 67 TFLOP/s (an FMA is 2; an rfft 2.5 N log2 N a row;
@@ -963,16 +971,36 @@ def phase_k9(pipe, k1: dict, k3: dict) -> dict:
             "lib": None, "bound": b}
 
 
+def full_table(first_rows: torch.Tensor, G: int, d: int) -> torch.Tensor:
+    """The (G d, G d) block-Toeplitz table whose first block row a state
+    kernel read: the table itself, or rebuilt from its first d rows where
+    the wrapper handed the kernel a copy of those (a transposed view)."""
+    if first_rows.shape[0] == G * d:
+        return first_rows
+    import importlib
+
+    from dsp_audio_project_tpu_torch.kernels.eq_design import _lower_triangle
+
+    gs = importlib.import_module(
+        "dsp_audio_project_tpu_torch.kernels.group_states")
+    return _lower_triangle(gs.toeplitz_taps(first_rows, d).transpose(-1, -2),
+                           G, d)
+
+
 def _states_cases(pipe, inj_serve: torch.Tensor) -> list:
-    """(name, inj, toe, A^block) at the shapes the main paths give the
-    state solve:
-    the serve cell's cat route, the frames route's strided column slice,
-    the slider (d = 12), a stream step at FL 12288, the dynamic builder at
-    one group a block over 60 s (G = 1, K = 18,000) and a one-band EQ (d =
-    2).  Injections other than the serve's are seeded normals."""
+    """(name, inj, toe, A^block, carry_w or None) at the shapes the main
+    paths give the state solve: the serve cell's cat route, the frames
+    route's strided column slice, the slider (d = 12), a stream step at FL
+    12288, the dynamic builder at one group a block over 60 s (G = 1, K =
+    18,432: no carry triangle), the serve's EQ at one group a block (G =
+    1, K = 144), a one-band EQ (d = 2), and the serve shape with a nonzero
+    incoming state (sixth field: sigma0, else None).  Injections other
+    than the serve's are seeded normals."""
+    import types
+
     from dsp_audio_project_tpu_torch import EQConfig
     from dsp_audio_project_tpu_torch.ops.eq import (
-        block_tables, make_block_operators,
+        _carry_weights, block_tables, make_block_operators,
     )
 
     rng = np.random.default_rng(17)
@@ -980,101 +1008,188 @@ def _states_cases(pipe, inj_serve: torch.Tensor) -> list:
     G = 128
     K = F_ // G
     tabs = pipe._tables(FS, K)
-    toe, a_blk = tabs["group_toeplitz"], tabs["state_corr"]
+    toe, a_blk, cw = tabs["group_toeplitz"], tabs["state_corr"], tabs["carry_w"]
     n = int(SECONDS * FS)
 
     def normal(*shape):
         return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
                                device=DEVICE)
 
-    dyn = pipe.dynamic_eq_operators(np.asarray(DYN_GAINS[0], np.float32),
-                                    FS, n, builder="host")
-    dyn1 = pipe.dynamic_eq_operators(np.asarray(DYN_GAINS[0], np.float32),
-                                     FS, n, groups_per_block=1,
-                                     builder="host")
+    def dyn_ops(n_in, groups):
+        return pipe.dynamic_eq_operators(np.asarray(DYN_GAINS[0], np.float32),
+                                         FS, n_in, groups_per_block=groups,
+                                         builder="host")
+
+    dyn, dyn1 = dyn_ops(n, G), dyn_ops(n, 1)
     fs_out = pipe.config.src.output_rate(FS)
     one = make_block_operators(
         EQConfig.from_gains({"Bass": 6}).active_bands(fs_out), fs_out,
         pipe.config.eq.q, G * 160, 160)
     one_tabs = block_tables(one, DEVICE, 16)
-    _, _, K_dyn1 = pipe.dynamic_eq_geometry(FS, n, groups_per_block=1)
+    g1 = block_tables(make_block_operators(
+        pipe.config.eq.active_bands(fs_out), fs_out, pipe.config.eq.q, 160,
+        160), DEVICE, K)
+    K_dyn1 = pipe.dynamic_eq_geometry(FS, n, groups_per_block=1)[2]
+    cw96 = torch.as_tensor(_carry_weights(
+        types.SimpleNamespace(state_corr=pipe._state_corr), 96), device=DEVICE)
     vp = -(-(160 + d) // 4) * 4
+    serve = inj_serve.reshape(B, K, G, d)
     return [
-        ("serve cat route", inj_serve.reshape(B, K, G, d), toe, a_blk),
+        ("serve cat route", serve, toe, a_blk, cw, None),
         (f"frames route (column slice, row stride {vp})",
-         normal(B, K, G, vp)[..., 160:160 + d], toe, a_blk),
-        ("slider (d = 12)", normal(1, K, G, 12), dyn.toe, dyn.A_blk),
+         normal(B, K, G, vp)[..., 160:160 + d], toe, a_blk, cw, None),
+        ("slider (d = 12)", normal(1, K, G, 12), dyn.toe, dyn.A_blk,
+         dyn.carry_w, None),
         ("stream step (FL 12288)", normal(BATCH, 12288 // G, G, d), toe,
-         a_blk),
+         a_blk, cw96, None),
         (f"G = 1, K = {K_dyn1}", normal(1, K_dyn1, 1, 12), dyn1.toe,
-         dyn1.A_blk),
+         dyn1.A_blk, None, None),
+        (f"G = 1, K = {K}", normal(2, K, 1, d), g1["group_toeplitz"],
+         g1["state_corr"], g1["carry_w"], None),
         ("one band (d = 2)", normal(2, 16, G, 2), one_tabs["group_toeplitz"],
-         one_tabs["state_corr"]),
+         one_tabs["state_corr"], one_tabs["carry_w"], None),
+        ("serve, incoming state", serve, toe, a_blk, cw, normal(B, d)),
     ]
 
 
-def phase_states(pipe, k1: dict) -> tuple[dict, dict]:
-    """[states]: the state solve's kernels (``kernels/group_states``: the
-    block-Toeplitz scan and its entry mode) against their plain versions
-    (the dense product and the einsum) at the main paths' shapes, > 120 dB
-    and max abs err <= 1e-5 * max|ref|; sigma from the carry where the
-    path has one.  Returns the record entries of both."""
+def phase_states(pipe, k1: dict) -> dict:
+    """[states]: the state solve's kernels (``kernels/group_states``) against
+    their plain versions at the main paths' shapes by ``states_agree`` (>
+    120 dB and max abs err <= 1e-5 * max|ref|, or else >= 100 dB against
+    the float64 chain): the carry route's ends and solve kernels (their
+    two launches against the dense product, the carry's product against
+    ``carry_w`` and the einsum), and the split route's zero-seed solve and
+    entry kernel around the carry scan; then the card's view of each
+    kernel (registers, spills, blocks an SM) and their times at the serve
+    shape beside the split route.  Returns the record entries by row."""
     import importlib
 
     from dsp_audio_project_tpu_torch.ops.eq import _carry_states
 
     gs = importlib.import_module(
         "dsp_audio_project_tpu_torch.kernels.group_states")
-    errs = {"s": 0.0, "e": 0.0}
-    for name, inj, toe, a_blk in _states_cases(pipe, k1["inj"]):
+    errs = dict.fromkeys(("group_ends", "group_solve", "group_states",
+                          "group_entry"), 0.0)
+
+    def hold(row, what, got, ref, inj, toe, part, **kw):
+        ok, why = gs.states_agree(got, ref, inj, toe, part=part, **kw)
+        log(f"[states] {row} {part}, {what}: {why}")
+        if not ok:
+            raise RuntimeError(f"[states] {row} disagrees with its plain "
+                               f"version ({part}, {what})")
+        errs[row] = max(errs[row], float((got - ref).abs().max()))
+
+    for name, inj, toe, a_blk, cw, sigma0 in _states_cases(pipe, k1["inj"]):
         K, G, d = inj.shape[-3:]
+        what = f"{name} {tuple(inj.shape)}"
+        full = G // gs.CHUNK
+        if cw is not None:
+            end, pre = gs.group_ends(inj, toe)
+            s_true, sigma = gs.group_solve(inj, toe, end, pre, cw, sigma0)
+            ref_end, ref_pre = gs.group_ends_plain(inj, toe)
+            ref_true, _, ref_sigma = gs.group_solve_plain(inj, toe, cw,
+                                                          sigma0, end)
+            torch.cuda.synchronize()
+            hold("group_ends", what, end, ref_end, inj, toe, "end")
+            if full:
+                hold("group_ends", what, pre[..., :full, :],
+                     ref_pre[..., :full, :], inj, toe, "pre")
+            kw = dict(carry_w=cw, sigma0=sigma0, end=end)
+            hold("group_solve", what, s_true, ref_true, inj, toe, "s_true", **kw)
+            hold("group_solve", what, sigma, ref_sigma, inj, toe, "sigma", **kw)
+        if sigma0 is not None:
+            continue
         s_in, end = gs.group_states(inj, toe)
         ref_in, ref_end = gs.group_states_plain(inj, toe)
         sigma = _carry_states(ref_end, a_blk)
         s_true = gs.group_entry_states(ref_in, sigma, toe)
         ref_true = gs.group_entry_states_plain(ref_in, sigma, toe)
         torch.cuda.synchronize()
-        what = f"{name} {tuple(inj.shape)}"
         if G > 1:
-            errs["s"] = max(errs["s"], compare("states", f"s_in, {what}",
-                                               s_in, ref_in))
+            hold("group_states", what, s_in, ref_in, inj, toe, "s_in")
         elif not torch.equal(s_in, ref_in):
             raise RuntimeError("[states] s_in at G = 1 is not all zeros")
-        errs["s"] = max(errs["s"], compare("states", f"end states, {what}",
-                                           end, ref_end))
-        errs["e"] = max(errs["e"], compare("states", f"s_true, {what}",
-                                           s_true, ref_true))
+        hold("group_ends", what, end, ref_end, inj, toe, "end")
+        if compare("states", f"s_true (entry kernel), {what}", s_true,
+                   ref_true) > 1e-5 * float(ref_true.abs().max()):
+            raise RuntimeError("[states] group_entry disagrees")
+        errs["group_entry"] = max(errs["group_entry"],
+                                  float((s_true - ref_true).abs().max()))
+    # The card's view of each kernel at the serve shape and the slider's.
+    for which, d_, K_ in (("ends", 10, 144), ("solve", 10, 144),
+                          ("states", 10, 144), ("ends", 12, 144),
+                          ("solve", 12, 144)):
+        occ = gs.occupancy(which, d_, K_)
+        log(f"[states] occupancy {which} (d = {d_}, K = {K_}): "
+            f"{occ['blocks_per_sm']} blocks of {occ['threads']} threads an "
+            f"SM, {occ['registers']} registers, {occ['local_bytes']} local "
+            f"(spilled) bytes a thread, {occ['smem_bytes']} shared bytes a "
+            f"block")
     # The serve cell's shape, timed.
     B, F_, d = k1["inj"].shape
-    inj = k1["inj"].reshape(B, F_ // 128, 128, d)
-    tabs = pipe._tables(FS, F_ // 128)
-    toe = tabs["group_toeplitz"]
-    rows, G = B * F_ // 128, 128
-    s_in, end = gs.group_states(inj, toe)
-    sigma = _carry_states(end, tabs["state_corr"], tabs.get("carry_w"))
+    K, G = F_ // 128, 128
+    inj = k1["inj"].reshape(B, K, G, d)
+    tabs = pipe._tables(FS, K)
+    toe, cw, a_blk = tabs["group_toeplitz"], tabs["carry_w"], tabs["state_corr"]
+    rows = B * K
+    end, pre = gs.group_ends(inj, toe)
+    s_in, _ = gs.group_states(inj, toe)
+    sigma = _carry_states(end, a_blk, cw)
     sig2, flat = sigma.reshape(rows, d), s_in.reshape(rows, G * d)
-    macs = rows * gs.chunk_multiply_adds(G, d)
-    # The scan sums in float64 on the CUDA cores; it reads the taps T_0
-    # .. T_4 and T_8 .. T_64.
-    states_bound = bound(2.0 * macs, 4.0 * (2 * inj.numel() + end.numel()
-                                            + (gs.CHUNK + 5) * d * d),
-                         PEAK_FP64_SIMT)
-    entry_bound = bound(2.0 * rows * G * d * d,
-                        4.0 * (2 * s_in.numel() + sigma.numel() + G * d * d))
-    log(f"[states] serve shape: {rows} block rows of G = {G}, d = {d}; "
-        f"chunk c = {gs.CHUNK}; the scan's {2.0 * macs / 1e9:.4f} "
-        f"GFLOP against the dense product's "
-        f"{2.0 * rows * (G * d) ** 2 / 1e9:.3f}")
-    return ({"max_abs_err": errs["s"],
-             "kern": lambda: gs.group_states(inj, toe),
-             "plain": lambda: gs.group_states_plain(inj, toe),
-             "lib": lambda: inj.reshape(rows, G * d) @ toe,
-             "bound": states_bound, "device_timed": True},
-            {"max_abs_err": errs["e"],
-             "kern": lambda: gs.group_entry_states(s_in, sigma, toe),
-             "plain": lambda: gs.group_entry_states_plain(s_in, sigma, toe),
-             "lib": lambda: torch.addmm(flat, sig2, toe[:d]),
-             "bound": entry_bound, "device_timed": True})
+    f4 = 4.0
+    inj_b, st_b = f4 * inj.numel(), f4 * rows * G * d
+    pre_b, end_b = f4 * pre.numel(), f4 * end.numel()
+    ends_ops = 2.0 * rows * gs.ends_multiply_adds(G, d)
+    solve_ops = 2.0 * B * gs.solve_multiply_adds(G, d, K)
+    bounds = {
+        "group_ends": bound(ends_ops, inj_b + pre_b + end_b, PEAK_FP64_SIMT),
+        "group_solve": bound(solve_ops, inj_b + pre_b + end_b + st_b
+                             + f4 * (cw.shape[0] * d + sigma.numel()),
+                             PEAK_FP64_SIMT),
+        "group_states": bound(ends_ops + 2.0 * rows * gs.chunk_multiply_adds(G, d),
+                              2 * inj_b + 2 * pre_b + end_b + st_b,
+                              PEAK_FP64_SIMT),
+        "group_entry": bound(2.0 * rows * G * d * d,
+                             2 * st_b + f4 * (sigma.numel() + G * d * d)),
+    }
+
+    def split():
+        s, e = gs.group_states(inj, toe)
+        return gs.group_entry_states(s, _carry_states(e, a_blk, cw), toe)
+
+    pair = 1e3 * measure_device(lambda: gs.group_true_states(inj, toe, cw), calls=20)
+    old = 1e3 * measure_device(split, calls=20)
+    log(f"[states] serve shape: {rows} block rows of G = {G}, d = {d}, K = "
+        f"{K}; the carry route's two launches {pair:.4f} ms a call, the split "
+        f"route (ends and zero-seed solve, the carry's cuBLAS product, the "
+        f"entry kernel) {old:.4f} ms; bound {bounds['group_ends'][0] + bounds['group_solve'][0]:.4f} ms "
+        f"({(ends_ops + solve_ops) / 1e9:.4f} GFLOP of float64, "
+        f"{(2 * inj_b + 2 * pre_b + st_b) / 1e6:.2f} MB); the dense "
+        f"product {2.0 * rows * (G * d) ** 2 / 1e9:.3f} GFLOP")
+    return {
+        "group_ends": {"max_abs_err": errs["group_ends"],
+                       "kern": lambda: gs.group_ends(inj, toe),
+                       "plain": lambda: gs.group_ends_plain(inj, toe),
+                       "lib": lambda: inj.reshape(rows, G * d) @ toe[:, -d:],
+                       "bound": bounds["group_ends"], "device_timed": True},
+        "group_solve": {"max_abs_err": errs["group_solve"],
+                        "kern": lambda: gs.group_solve(inj, toe, end, pre, cw),
+                        "plain": lambda: gs.group_solve_plain(inj, toe, cw,
+                                                              None, end),
+                        "lib": None,
+                        "bound": bounds["group_solve"], "device_timed": True},
+        "group_states": {"max_abs_err": errs["group_states"],
+                         "kern": lambda: gs.group_states(inj, toe),
+                         "plain": lambda: gs.group_states_plain(inj, toe),
+                         "lib": lambda: inj.reshape(rows, G * d) @ toe,
+                         "bound": bounds["group_states"], "device_timed": True},
+        "group_entry": {"max_abs_err": errs["group_entry"],
+                        "kern": lambda: gs.group_entry_states(s_in, sigma, toe),
+                        "plain": lambda: gs.group_entry_states_plain(
+                            s_in, sigma, toe),
+                        "lib": lambda: torch.addmm(flat, sig2, toe[:d]),
+                        "bound": bounds["group_entry"], "device_timed": True},
+    }
 
 
 def oracle_outputs(cfg, xs: np.ndarray) -> list:
@@ -1133,18 +1248,25 @@ def run_counted(fn):
     return out, launch_counts()
 
 
-# K9 reads the states of the state solve's two kernels wherever it runs.
-STATE_KERNELS = ("group_states", "group_entry_states")
+# K9 reads the states of the state solve wherever it runs: the ends kernel,
+# then the solve kernel with its carry (where the tables hold the carry
+# triangle), or the zero-seed solve and the entry kernel around a carry of
+# the caller's own.
+STATE_ROUTES = (("group_ends", "group_solve"),
+                ("group_ends", "group_states", "group_entry_states"))
 
 
 def require(tag: str, counts: dict, names, at_least: int = 1) -> None:
     """Fail unless each kernel of ``names`` launched ``at_least`` times
-    (with K9, the state solve's kernels too)."""
+    (with K9, the kernels of one of the state solve's routes too)."""
     names = tuple(names)
-    if "eq_finish" in names:
-        names += STATE_KERNELS
     log(f"[{tag}] launches: {counts}")
     missing = [n for n in names if counts[n] < at_least]
+    if "eq_finish" in names and not any(
+            all(counts[n] >= at_least for n in route)
+            for route in STATE_ROUTES):
+        missing.append("the state solve: "
+                       + " or ".join(" + ".join(r) for r in STATE_ROUTES))
     if missing:
         raise RuntimeError(f"[{tag}] kernels of the path launched fewer "
                            f"than {at_least} times: {missing}")
@@ -1157,6 +1279,7 @@ def phase_slice(pipe, x: torch.Tensor, want: list):
     n_out = cfg.src.output_length(x.shape[-1])
     (z, mags), counts = run_counted(lambda: pipe.forward_cat_spectra(x, FS))
     require("slice", counts, ("polyphase_fir_class_rect_cat", "eq_finish",
+                              "group_ends", "group_solve",
                               "rfft_four_step_magnitude"))
     zf = z.reshape(BATCH, -1)[:, :n_out]
     if not bool(torch.isfinite(zf).all()):
@@ -1173,7 +1296,8 @@ def phase_slice(pipe, x: torch.Tensor, want: list):
 
 
 def phase_frames(pipe, x: torch.Tensor, want: list) -> dict:
-    needed = ("fir_frames_kernel", "eq_finish", "rfft_four_step_magnitude")
+    needed = ("fir_frames_kernel", "eq_finish", "rfft_four_step_magnitude",
+              "group_ends", "group_solve")
     n_out = pipe.config.src.output_length(x.shape[-1])
     out, counts = run_counted(lambda: pipe(x, FS, with_spectra=True))
     require("frames", counts, needed)
@@ -1686,10 +1810,11 @@ def phase_dynamic(pipe, x: torch.Tensor, want: list):
             zc, c_cat = run_counted(
                 lambda: pipe.forward_cat_dynamic_ops(x, ops, tabs, FS))
             require("dynamic", c_cat, ("polyphase_fir_class_rect_cat",
-                                       "eq_finish"))
+                                       "eq_finish", "group_solve"))
             (zf, _), c_fr = run_counted(
                 lambda: pipe.forward_frames_dynamic_ops(x, ops, FS))
-            require("dynamic", c_fr, ("fir_frames_kernel", "eq_finish"))
+            require("dynamic", c_fr, ("fir_frames_kernel", "eq_finish",
+                                      "group_solve"))
             for c in (c_b, c_cat, c_fr):
                 total = c if total is None else {k: total[k] + c[k]
                                                  for k in total}
@@ -3368,7 +3493,7 @@ def add_runs(runs: list) -> dict:
 
 class LaunchChecker:
     """Holds K1, the frames kernel, K9, K2, the device builder and the
-    state solve's two kernels against their plain versions at the
+    state solve's kernels against their plain versions at the
     launches a path makes.  Inside ``on()``, each launch made
     outside a CUDA-graph capture (a captured launch replays a geometry its
     warm-up ran eagerly) is followed by its plain version on the same
@@ -3378,8 +3503,8 @@ class LaunchChecker:
     launch no kernel, so the counts are untouched.  ``errs``: max abs err
     by record row."""
 
-    ROWS = ("k1", "k3", "k9", "k2", "eq_design", "group_states",
-            "group_entry")
+    ROWS = ("k1", "k3", "k9", "k2", "eq_design", "group_ends",
+            "group_solve", "group_states", "group_entry")
 
     def __init__(self, tag: str):
         self.tag = tag
@@ -3435,7 +3560,8 @@ class LaunchChecker:
         gs = importlib.import_module(
             "dsp_audio_project_tpu_torch.kernels.group_states")
         real = (fc._launch, fc._launch_frames, ef._launch, rf._launch,
-                ed._launch, gs._launch_states, gs._launch_entry)
+                ed._launch, gs._launch_states, gs._launch_entry,
+                gs._launch_ends, gs._launch_solve)
 
         def k1(x, g2, y0, inj, n, f_pad, W, V, P, s, pad_left):
             real[0](x, g2, y0, inj, n, f_pad, W, V, P, s, pad_left)
@@ -3485,34 +3611,67 @@ class LaunchChecker:
                 card = gains.device.index
                 self.by_card[card] = self.by_card.get(card, 0) + 1
 
-        def states(inj4, toe, s_in, end):
+        def held_states(row, what, pairs, inj4, toe, **kw):
             # gs.states_agree: > 120 dB against plain, or else >= 100 dB
-            # against the float64 product (the dense float32 product is
-            # itself below 120 dB there).
-            real[5](inj4, toe, s_in, end)
+            # against the float64 chain (the dense float32 product is
+            # itself below 120 dB where the poles lie close to 1).
+            for part, got, ref in pairs:
+                ok, why = gs.states_agree(got, ref, inj4, toe, part=part, **kw)
+                if not ok:
+                    raise RuntimeError(
+                        f"[{self.tag}] {what} at {tuple(inj4.shape)} "
+                        f"disagrees with its plain version ({part}): {why}")
+                top = float(ref.abs().max())
+                self.errs[row] = max(self.errs[row],
+                                     float((got - ref).abs().max()))
+                self.worst_db[row] = min(
+                    self.worst_db[row],
+                    snr_db(ref, got) if top > 0.0 else math.inf)
+                if "float64" in why:
+                    log(f"[{self.tag}] {what} at {tuple(inj4.shape)} "
+                        f"({part}): {why}")
+            self.held[row] += 1
+            card = inj4.device.index
+            self.by_card[card] = self.by_card.get(card, 0) + 1
+
+        def ends(inj4, taps, end, pre):
+            real[7](inj4, taps, end, pre)
+            if not self._fresh(("group_ends", tuple(inj4.shape),
+                                inj4.stride())):
+                return
+            toe = full_table(taps, *inj4.shape[-2:])
+            ref_end, ref_pre = gs.group_ends_plain(inj4, toe)
+            full = inj4.shape[-2] // gs.CHUNK
+            held_states("group_ends", "group_ends",
+                        (("end", end.reshape(ref_end.shape), ref_end),
+                         ("pre", pre.reshape(ref_pre.shape)[..., :full, :],
+                          ref_pre[..., :full, :])), inj4, toe)
+
+        def solve(inj4, taps, pre, end, cw, sigma0, s_true, sigma):
+            real[8](inj4, taps, pre, end, cw, sigma0, s_true, sigma)
+            if not self._fresh(("group_solve", tuple(inj4.shape),
+                                inj4.stride(), sigma0 is None)):
+                return
+            toe = full_table(taps, *inj4.shape[-2:])
+            carry_w = full_table(cw, inj4.shape[1], inj4.shape[-1])
+            e = end.reshape(inj4.shape[:2] + inj4.shape[-1:])
+            ref_true, _, ref_sigma = gs.group_solve_plain(
+                inj4, toe, carry_w, sigma0, e)
+            held_states("group_solve", "group_solve",
+                        (("s_true", s_true.reshape(ref_true.shape), ref_true),
+                         ("sigma", sigma.reshape(ref_sigma.shape), ref_sigma)),
+                        inj4, toe, carry_w=carry_w, sigma0=sigma0, end=e)
+
+        def states(inj4, taps, pre, s_in):
+            real[5](inj4, taps, pre, s_in)
             if not self._fresh(("group_states", tuple(inj4.shape),
                                 inj4.stride())):
                 return
-            ref_in, ref_end = gs.group_states_plain(inj4, toe)
-            for got, ref in ((s_in.reshape(ref_in.shape), ref_in),
-                             (end.reshape(ref_end.shape), ref_end)):
-                ok, what = gs.states_agree(got, ref, inj4, toe)
-                if not ok:
-                    raise RuntimeError(
-                        f"[{self.tag}] group_states at {tuple(inj4.shape)} "
-                        f"disagrees with its plain version: {what}")
-                top = float(ref.abs().max())
-                self.errs["group_states"] = max(
-                    self.errs["group_states"], float((got - ref).abs().max()))
-                self.worst_db["group_states"] = min(
-                    self.worst_db["group_states"],
-                    snr_db(ref, got) if top > 0.0 else math.inf)
-                if "float64" in what:
-                    log(f"[{self.tag}] group_states at {tuple(inj4.shape)}: "
-                        f"{what}")
-            self.held["group_states"] += 1
-            card = s_in.device.index
-            self.by_card[card] = self.by_card.get(card, 0) + 1
+            toe = full_table(taps, *inj4.shape[-2:])
+            ref_in = gs.group_states_plain(inj4, toe)[0]
+            held_states("group_states", "group_states",
+                        (("s_in", s_in.reshape(ref_in.shape), ref_in),),
+                        inj4, toe)
 
         def entry(s_in, sigma, toe, s_true):
             real[6](s_in, sigma, toe, s_true)
@@ -3520,24 +3679,26 @@ class LaunchChecker:
                 self._hold("group_entry", f"group_entry_states at "
                            f"{tuple(s_in.shape)}",
                            (s_true, gs.group_entry_states_plain(
-                               s_in, sigma, toe)))
+                               s_in, sigma, full_table(toe, *s_in.shape[-2:]))))
 
         self.every = every
         (fc._launch, fc._launch_frames, ef._launch, rf._launch,
-         ed._launch, gs._launch_states, gs._launch_entry) = (
-            k1, k3, k9, k2, design, states, entry)
+         ed._launch, gs._launch_states, gs._launch_entry, gs._launch_ends,
+         gs._launch_solve) = (k1, k3, k9, k2, design, states, entry, ends,
+                              solve)
         try:
             yield self
         finally:
             (fc._launch, fc._launch_frames, ef._launch, rf._launch,
-             ed._launch, gs._launch_states, gs._launch_entry) = real
+             ed._launch, gs._launch_states, gs._launch_entry,
+             gs._launch_ends, gs._launch_solve) = real
 
     def report(self, what: str) -> None:
         log(f"[{self.tag}] {what}: launches held against their plain "
             "versions (bound 120 dB, max abs err <= 1e-5 * max|ref|; "
             "eq_design: each table within one float32 ulp of its largest "
-            "magnitude, its dB the group Toeplitz triangle's; group_states: "
-            "or else >= 100 dB against the float64 product): " +
+            "magnitude, its dB the group Toeplitz triangle's; the state "
+            "kernels: or else >= 100 dB against the float64 chain): " +
             ", ".join(f"{row} {self.held[row]} (worst {self.worst_db[row]:.1f}"
                       f" dB, max abs err {self.errs[row]:.3e})"
                       for row in self.ROWS))
@@ -3586,8 +3747,8 @@ def phase_bench() -> tuple[dict, dict]:
     checker = LaunchChecker("bench")
     stream_step_checked(bench.serving_config(), bench.STREAM_FL, checker)
     checker.report(f"the stream's step at FL {bench.STREAM_FL}")
-    if not all(checker.held[row] for row in ("k1", "k9", "group_states",
-                                               "group_entry")):
+    if not all(checker.held[row] for row in ("k1", "k9", "group_ends",
+                                               "group_states", "group_entry")):
         raise RuntimeError("[bench] the stream step held no K1, K9 or state "
                            "solve launch")
     log("[bench] " + json.dumps(rec))
@@ -3694,7 +3855,7 @@ def main() -> None:
     k2c = phase_k2c(x)
     k3, k3_routes, k3_counts = phase_k3(pipe, x, small)
     k9 = phase_k9(pipe, k1, k3)
-    gs_states, gs_entry = phase_states(pipe, k1)
+    states = phase_states(pipe, k1)
     del k1["y0"], k1["inj"], k3["y"]
     k7 = phase_k7(x)
     k8 = phase_k8(x)
@@ -3728,8 +3889,7 @@ def main() -> None:
                  scripts_errs):
         for tag, err in errs.items():
             k = {"k1": k1, "k3": k3, "k9": k9, "k2": k2,
-                 "eq_design": dyn_checks["eq_design"],
-                 "group_states": gs_states, "group_entry": gs_entry}[tag]
+                 "eq_design": dyn_checks["eq_design"], **states}[tag]
             k["max_abs_err"] = max(k["max_abs_err"], err)
     for tag, err in phase_stream_kernels(cfg, xs).items():
         k = {"k1": k1, "k3": k3, "k9": k9, "k2": k2}[tag]
@@ -3772,8 +3932,7 @@ def main() -> None:
 
     kernels = {"k1": k1, "k2": k2, "k3": k3, "k9": k9, "k2c": k2c,
                "k7": k7, "k8": k8, "e2a": e2a, "e2b": e2b, "e7": e7, "e6": e6,
-               "group_states": gs_states, "group_entry": gs_entry,
-               **k3_routes, **dyn_checks}
+               **states, **k3_routes, **dyn_checks}
     timings = {}
     for tag, k in kernels.items():
         # The plain E2 loops over 8192 steps on the host: fewer runs.
@@ -3854,8 +4013,13 @@ def main() -> None:
         # ops, whose torch port it replaces.
         ("eq_design", "eq_design", "csrc/eq_design.cu",
          "dsp_audio_project_tpu/ops/eq_dynamic.py:228"),
-        # Replace no TPU kernel: the state solve's dense product and the
-        # entry states' einsum, which the JAX package leaves to XLA.
+        # Replace no TPU kernel: the state solve's dense product, the
+        # carry's product against its triangle and the entry states'
+        # einsum, which the JAX package leaves to XLA.
+        ("group_ends", "group_ends", "csrc/group_states.cu",
+         "dsp_audio_project_tpu/ops/eq.py:106"),
+        ("group_solve", "group_solve", "csrc/group_states.cu",
+         "dsp_audio_project_tpu/ops/eq.py:568"),
         ("group_states", "group_states", "csrc/group_states.cu",
          "dsp_audio_project_tpu/ops/eq.py:106"),
         ("group_entry", "group_entry_states", "csrc/group_states.cu",

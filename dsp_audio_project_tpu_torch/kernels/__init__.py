@@ -35,7 +35,8 @@ Kernels that replace no TPU kernel:
 | kernel | what it replaces | file |
 |--------|------------------|------|
 | eq_design | the device gain builder's ~220 float64 torch ops (ops/eq_dynamic.build_dynamic_operators; the JAX package's df32 ops, ops/eq_dynamic.py:228 _dynamic_operators) | eq_design.py + csrc/eq_design.cu (CUDA, three launches: one block designs the bands and squares the powers' heads, a block a power multiplies heads, a block a row writes the triangles) |
-| group_states, group_entry_states | the EQ's state solve on cuBLAS: the dense (B K, G d) @ (G d, G d) product against the block-Toeplitz table and the entry states' einsum (the JAX package leaves them to XLA, ops/eq.py:106 _grouped_states, :186) | group_states.py + csrc/group_states.cu (CUDA cores, float32 in and out, float64 sums: a chunked scan over the table's taps, and an entry mode after the carry) |
+| group_ends, group_solve | the EQ's state solve where the tables hold the carry triangle (the cat, frames, flat and dynamic routes): the dense (B K, G d) @ (G d, G d) product against the block-Toeplitz table, the carry's product against `carry_w` and the entry states' einsum on cuBLAS (the JAX package leaves them to XLA, ops/eq.py:106 _grouped_states, :568 _carry_states, :186) | group_states.py + csrc/group_states.cu (CUDA cores, float32 in and out, float64 sums; a warp a block row: the ends kernel, every chunk's zero-entry end by a scan over the lanes; the solve kernel, the carry from `carry_w`'s first block row and s_true written once) |
+| group_states, group_entry_states | the same solve split around a carry of the caller's own (the streams, the sharded pipeline, long uploads): the zero-entry states and the entry states' einsum | group_states.py + csrc/group_states.cu (the ends kernel and the solve kernel with a zero seed; an entry kernel, float32) |
 
 Times on the card are in PERF.md.
 """
@@ -60,7 +61,9 @@ from .fir_class import (
     polyphase_fir_class_rect_frames,
 )
 from .fir_shear import polyphase_fir_shear_frames
-from .group_states import group_entry_states, group_states
+from .group_states import (
+    group_ends, group_entry_states, group_solve, group_states,
+)
 from .rfft import rfft_four_step_complex, rfft_four_step_magnitude
 from .rfft_two_pass import rfft_four_step_tall, rfft_two_level
 
@@ -71,7 +74,8 @@ KERNELS = (polyphase_fir_class_rect_cat, fir_frames_kernel, eq_finish,
            polyphase_fir_dma, polyphase_fir_rect_splitbank,
            polyphase_fir_rect_rowdma, polyphase_fir_class_frames,
            polyphase_fir_shear_frames, polyphase_fir_class_flat,
-           polyphase_fir, eq_design, group_states, group_entry_states)
+           polyphase_fir, eq_design, group_ends, group_solve, group_states,
+           group_entry_states)
 
 
 def launch_counts() -> dict:

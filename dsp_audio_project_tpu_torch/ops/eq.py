@@ -15,11 +15,14 @@ cut into blocks of G groups of U samples:
 4. readout:      z = clip(y0 + (s_in + A^{gU} sigma) @ group_out, -1, 1),
    one pass of K9 (kernels/eq_finish.py).
 
-Steps 1-3 are the glue the JAX package leaves to XLA.  Steps 1 and 3 are
-plain torch products, in float32 with TF32 off (utils/precision); step 2
-and the entry states s_in + A^{gU} sigma of step 4 are the block-Toeplitz
-scan of kernels/group_states.py (float64 sums on the CUDA cores; the dense
-float32 product and the einsum on a CPU tensor).  Host tables
+Steps 1-3 are the glue the JAX package leaves to XLA.  Step 1 is a plain
+torch product, in float32 with TF32 off (utils/precision); steps 2-3 and
+the entry states s_true = s_in + A^{gU} sigma of step 4 are the kernels of
+kernels/group_states.py (float64 sums on the CUDA cores; the dense float32
+products and the einsum on a CPU tensor): where the tables hold the carry
+triangle (K <= _CARRY_ALLPAIRS_MAX) two launches, the blocks' ends and
+then the carry and the states seeded with it; elsewhere the zero-entry
+scan, the carry's log-depth scan in torch and the entry states.  Host tables
 (float64 numpy) are copies of the JAX design code and are held bit-for-bit
 equal by the tests.  Entry points: ``equalize`` (flat signals, block 8192 /
 unroll 128 by default), ``equalize_frames`` (the frames path's (F, P)
@@ -43,7 +46,9 @@ import torch
 
 from ..config import EQConfig
 from ..kernels.eq_finish import eq_finish, eq_finish_plain
-from ..kernels.group_states import group_entry_states, group_states
+from ..kernels.group_states import (
+    carry_plain, group_entry_states, group_states, group_true_states,
+)
 from ..kernels.experiments.iir import apply_rows, end_states_rows
 from ..utils.device import as_input
 from ..design.biquad import (
@@ -161,6 +166,8 @@ def _carry_states(
     without, the log-depth scan over [(I, sigma0), (A^block, e_0), ...,
     (A^block, e_{K-2})], whose position k is sigma_k.
     """
+    if carry_w is not None:
+        return carry_plain(end_states, carry_w, sigma0)
     d = end_states.shape[-1]
     K = end_states.shape[-2]
     lead = end_states.shape[:-2]
@@ -168,12 +175,6 @@ def _carry_states(
         sigma0 = end_states.new_zeros(lead + (d,))
     vecs = torch.cat([sigma0.unsqueeze(-2), end_states[..., : K - 1, :]],
                      dim=-2)
-    if carry_w is not None:
-        if carry_w.shape != (K * d, K * d):
-            raise ValueError(f"carry_w {tuple(carry_w.shape)} != "
-                             f"{(K * d, K * d)}")
-        sig = vecs.reshape(lead + (K * d,)) @ carry_w
-        return sig.reshape(lead + (K, d))
     eye = torch.eye(d, dtype=state_corr.dtype, device=state_corr.device)
     mats = torch.cat([
         eye.expand(lead + (1, d, d)),
@@ -240,12 +241,18 @@ def _true_states(inj: torch.Tensor, tables: Mapping[str, torch.Tensor],
 
     Returns (s_true (..., K, G, d) contiguous: the true state entering each
     group, end_states (..., K, d), sigma (..., K, d)).  ``sigma0``: the
-    incoming state of block 0 (zero by default).
+    incoming state of block 0 (zero by default).  Where the tables hold the
+    carry triangle, ``group_true_states``: on the card the ends kernel and
+    the solve kernel, which takes its carry from the triangle's first
+    block row and writes s_true once; else the zero-entry scan, the carry
+    scan and the entry states.
     """
     toe = tables["group_toeplitz"]
+    carry_w = tables.get("carry_w")
+    if carry_w is not None:
+        return group_true_states(inj, toe, carry_w, sigma0)
     s_in, end_states = _group_states(inj, toe)
-    sigma = _carry_states(end_states, tables["state_corr"],
-                          tables.get("carry_w"), sigma0)
+    sigma = _carry_states(end_states, tables["state_corr"], None, sigma0)
     return _entry_states(s_in, sigma, toe), end_states, sigma
 
 
@@ -258,17 +265,22 @@ def _entry_states(s_in: torch.Tensor, sigma: torch.Tensor,
     return group_entry_states(s_in, sigma, toe)
 
 
-def _grouped_parts(x_g: torch.Tensor, tables: Mapping[str, torch.Tensor]):
-    """Steps 1-2 on (..., K, G, U): (y0, s_in, end_states), the state pass
-    split before the carry solve, for callers that inject the carry between
-    the passes (the streams).  Step 1 is one product against ``w_frames``;
-    y0 is a column slice of it, which K9 reads in place."""
+def _frames_product(x_g: torch.Tensor, tables: Mapping[str, torch.Tensor]):
+    """Step 1 on (..., K, G, U): (y0, inj), column slices of one product
+    against ``w_frames``, which K9 and the state kernels read in place."""
     U = x_g.shape[-1]
     d = tables["state_corr"].shape[0]
     cat = x_g @ tables["w_frames"]                      # (..., K, G, Vp)
-    s_in, end_states = _group_states(cat[..., U:U + d],
-                                     tables["group_toeplitz"])
-    return cat[..., :U], s_in, end_states
+    return cat[..., :U], cat[..., U:U + d]
+
+
+def _grouped_parts(x_g: torch.Tensor, tables: Mapping[str, torch.Tensor]):
+    """Steps 1-2 on (..., K, G, U): (y0, s_in, end_states), the state pass
+    split before the carry solve, for callers that inject the carry between
+    the passes (the streams)."""
+    y0, inj = _frames_product(x_g, tables)
+    s_in, end_states = _group_states(inj, tables["group_toeplitz"])
+    return y0, s_in, end_states
 
 
 def _grouped_finish(y0: torch.Tensor, s_in: torch.Tensor,
@@ -294,10 +306,8 @@ def _grouped_run(
     clipped, because the readout and the clip are one K9 pass
     (``eq_finish``).  ``sigma0``: the incoming state of block 0.
     """
-    y0, s_in, end_states = _grouped_parts(x_g, tables)
-    sigma = _carry_states(end_states, tables["state_corr"],
-                          tables.get("carry_w"), sigma0)
-    s_true = _entry_states(s_in, sigma, tables["group_toeplitz"])
+    y0, inj = _frames_product(x_g, tables)
+    s_true, end_states, sigma = _true_states(inj, tables, sigma0)
     return (eq_finish(y0, s_true, tables["group_out"]), s_true, end_states,
             sigma)
 

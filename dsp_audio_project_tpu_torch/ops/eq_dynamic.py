@@ -23,8 +23,10 @@ of device tables, which the per-batch apply side takes as an argument:
   float64; the H100 has it, so ``utils/df32.py`` is not ported.
 
 The apply side is the static path's algebra on these tables: the group
-Toeplitz solve, the block carry (``dyn_block_carry``: one product against
-the dense carry triangle up to K*d = 2048, else the log-depth scan), and
+Toeplitz solve and the block carry (up to K*d = 2048, where the builder
+makes the dense carry triangle, the two kernels of ``group_true_states``,
+which read the triangle's first block row; else the zero-entry scan, the
+log-depth carry scan, ``dyn_block_carry``, and the entry states), and
 the readout with the clip as one K9 pass (``kernels/eq_finish``).  The cat
 path's operator G2 = G @ [fir_t | group_in] is one float64 device product
 per gain change (``build_cat_tables_dyn``); the JAX package's rotated
@@ -57,6 +59,7 @@ from ..design.biquad import cascade_state_space, peaking_coeffs, schur_form
 from ..kernels.eq_design import _dense_carry, _lower_triangle, eq_design
 from ..kernels.eq_finish import eq_finish
 from ..kernels.fir_class import plan_operator
+from ..kernels.group_states import group_true_states
 from ..utils.device import as_input, default_device, device_tables
 from .eq import _carry_states, _entry_states, _group_states
 
@@ -339,9 +342,13 @@ def dyn_block_carry(e_states: torch.Tensor, carry_w: Optional[torch.Tensor],
 
 def _dyn_states(inj: torch.Tensor, ops: DynOperators) -> torch.Tensor:
     """The true state entering each group, (..., K, G, d), from the
-    injections (..., K, G, d)."""
+    injections (..., K, G, d): where the builder made the carry triangle,
+    ``group_true_states`` (on the card the ends and solve kernels); else
+    the zero-entry scan, the carry scan and the entry states."""
+    if ops.carry_w is not None:
+        return group_true_states(inj, ops.toe, ops.carry_w)[0]
     s_in, e_states = _group_states(inj, ops.toe)
-    sigma = dyn_block_carry(e_states, ops.carry_w, ops.A_blk)
+    sigma = dyn_block_carry(e_states, None, ops.A_blk)
     return _entry_states(s_in, sigma, ops.toe)
 
 

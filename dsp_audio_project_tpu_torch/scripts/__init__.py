@@ -15,7 +15,7 @@
 Counterparts of the repo's ``scripts/`` of those names.  Two more time
 ablation copies of one kernel source on the card, and have no JAX
 counterpart: ``fir_variants`` (the FIR body, ``csrc/fir_cat.cu``) and
-``state_variants`` (the state solve's scan, ``csrc/group_states.cu``:
+``state_variants`` (the state solve's kernels, ``csrc/group_states.cu``:
 float64 against float32 sums, beside the dense product it replaced).  The JAX package's
 TPU probes (``mosaic_capability``, ``layout_probe``, ``mxu_issue_probe``,
 ``split_ab``, ``cat_ab``, ``flat_vs_frames``) and ``sharded_real_chip`` have

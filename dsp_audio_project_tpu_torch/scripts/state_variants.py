@@ -1,17 +1,18 @@
-"""Variants of the state solve's scan kernel (``csrc/group_states.cu``).
+"""Variants of the state solve's kernels (``csrc/group_states.cu``).
 
     python -m dsp_audio_project_tpu_torch.scripts.state_variants
 
 Writes patched copies of ``csrc/group_states.cu`` into a temporary
 directory, builds them at once with nvcc (the port's flags) and runs each
-one's launcher through ctypes.  The variants:
+one's launchers through ctypes: the ends kernel, then the solve kernel
+with a zero seed (the zero-entry states s_in).  The variants:
 
 * ``as built``: the source as it is (float64 sums);
 * ``float32 sums``: every ``double`` of the source made ``float`` (the
-  same scan, summed in float32).
+  same kernels, summed in float32).
 
 Times (device µs a call, ``utils/benchmarking.measure_device``) at the main
-paths' shapes, beside the dense product the kernel replaced
+paths' shapes, beside the dense product the kernels replace
 (``group_states_plain``) and its one cuBLAS GEMM: the serve cell's (8 x
 144 block rows of G = 128, d = 10), the slider's (144 rows, d = 12) and a
 stream step's at FL 12288 (8 x 96 rows).  Then the accuracy where the
@@ -80,22 +81,29 @@ def build(tmp: pathlib.Path) -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{out}")
         lib = ctypes.CDLL(str(so))
-        lib.group_states_launch.argtypes = _LAUNCHERS["group_states_launch"]
-        lib.group_states_launch.restype = ctypes.c_int
+        for fn in ("group_ends_launch", "group_states_launch"):
+            getattr(lib, fn).argtypes = _LAUNCHERS[fn]
+            getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs
 
 
 def launch(lib, inj: torch.Tensor, toe: torch.Tensor):
+    """(s_in, end) from one variant's library: the ends kernel, then the
+    solve kernel with a zero seed."""
     outer, K, G, d = inj.shape
     s_in = torch.empty(outer, K, G, d, device=inj.device)
     end = torch.empty(outer, K, d, device=inj.device)
-    err = lib.group_states_launch(
-        inj.data_ptr(), toe.data_ptr(), s_in.data_ptr(), end.data_ptr(),
-        outer * K, K, G, d, *inj.stride()[:3], toe.stride(0),
-        torch.cuda.current_stream().cuda_stream)
+    pre = torch.empty(outer, K, -(-G // 4), d, device=inj.device)
+    geometry = (outer * K, K, G, d, *inj.stride()[:3], toe.stride(0),
+                torch.cuda.current_stream().cuda_stream)
+    err = (lib.group_ends_launch(inj.data_ptr(), toe.data_ptr(),
+                                 end.data_ptr(), pre.data_ptr(), *geometry)
+           or lib.group_states_launch(inj.data_ptr(), toe.data_ptr(),
+                                      pre.data_ptr(), s_in.data_ptr(),
+                                      *geometry))
     if err:
-        raise RuntimeError(f"group_states_launch: CUDA error {err}")
+        raise RuntimeError(f"group_states: CUDA error {err}")
     return s_in, end
 
 

@@ -39,15 +39,20 @@ launches bit for bit, one capture replayed for two gain vectors equal to
 the eager call, ``forward_frames_dynamic`` >= 120 dB against the same
 forward on the plain version's operators, and a build failure raises;
 a 60 s upload at one group a block (K = 18,432) builds bit for bit.  The
-state solve (``kernels/group_states``): the scan and its entry mode
-against the dense product and the einsum at the main paths' shapes (the
-serve cell's, the frames route's column slice, the slider's d = 12, a
+state solve (``kernels/group_states``): the zero-seed solve and the entry
+kernel against the dense product and the einsum at the main paths' shapes
+(the serve cell's, the frames route's column slice, the slider's d = 12, a
 stream step, G = 1 at K = 18,432, d = 2) and past one tile of groups, >
-120 dB and max abs err <= 1e-5 * max|ref|, two launches bit for bit; at
-config_matrix's P = 1 plans, where the dense float32 product is itself
-below 120 dB against float64, >= 100 dB against the float64 product
-(``states_agree``); the cat route's solve captured in a CUDA graph and
-replayed; a build failure raises.
+120 dB and max abs err <= 1e-5 * max|ref|, two launches bit for bit; the
+carry route's ends and solve kernels against the dense product, the
+carry's product against ``carry_w`` and the einsum at those shapes that
+have a carry triangle, with and without an incoming state, at ragged G,
+K = 1 and a carry over many blocks, by ``states_agree``; its two launches
+are the cat route's whole solve (no other kernel, no cuBLAS) and replay
+from a CUDA graph bit for bit; at config_matrix's P = 1 plans, where the
+dense float32 product is itself below 120 dB against float64, >= 100 dB
+against the float64 product (``states_agree``); the cat route's solve
+captured in a CUDA graph and replayed; a build failure raises.
 Streaming: each route of ``ShardedStreamProcessor`` on the
 card vs the same processor on the CPU (> 110 dB), its kernels launched and
 its step captured once; the graph replay bit for bit against the eager
@@ -1231,6 +1236,150 @@ def test_true_states_in_a_cuda_graph(cuda):
         torch.cuda.synchronize()
         eager = _true_states(buf, tabs)[0]
         assert torch.equal(out, eager) or snr_db(host(eager), host(out)) >= 130
+
+
+def carry_case(name, device):
+    """(inj, toe, carry_w) for a ``STATE_SHAPES`` entry with a carry
+    triangle: ``state_case``'s injections and table, the static tables' or
+    the device builder's ``carry_w`` for its K blocks."""
+    from dsp_audio_project_tpu_torch.ops.eq import block_tables
+
+    inj, toe, _ = state_case(name, device)
+    (B, K, G, d), source = STATE_SHAPES[name]
+    if source == "dynamic":
+        ops = pt.build_dynamic_operators(
+            torch.tensor(DYN_GAINS[0], device=device), 48000, pt.EQConfig(),
+            160, G, K)
+        return inj, ops.toe, ops.carry_w
+    gains = {"Bass": 6} if source == "one band" else GAINS
+    cfg = pt.EQConfig.from_gains(gains)
+    ops = make_block_operators(cfg.active_bands(48000), 48000, cfg.q,
+                               G * 160, 160)
+    return inj, toe, block_tables(ops, device, K)["carry_w"]
+
+
+def hold_solve(inj, toe, carry_w, sigma0=None):
+    """The carry route's kernels against their plain versions by
+    ``states_agree``: the ends and every full chunk's state, s_true and
+    sigma; returns the kernels' outputs."""
+    gs = importlib.import_module(
+        "dsp_audio_project_tpu_torch.kernels.group_states")
+    end, pre = gs.group_ends(inj, toe)
+    s_true, sigma = gs.group_solve(inj, toe, end, pre, carry_w, sigma0)
+    ref_end, ref_pre = gs.group_ends_plain(inj, toe)
+    ref_true, _, ref_sigma = gs.group_solve_plain(inj, toe, carry_w, sigma0,
+                                                  end)
+    torch.cuda.synchronize()
+    full = inj.shape[-2] // gs.CHUNK
+    pairs = [("end", end, ref_end), ("s_true", s_true, ref_true),
+             ("sigma", sigma, ref_sigma)]
+    if full:
+        pairs.append(("pre", pre[..., :full, :], ref_pre[..., :full, :]))
+    for part, got, ref in pairs:
+        ok, what = gs.states_agree(got, ref, inj, toe, carry_w, sigma0, end,
+                                   part=part)
+        assert ok, f"{part}: {what}"
+    return end, pre, s_true, sigma
+
+
+@pytest.mark.parametrize("with_sigma0", [False, True], ids=["zero", "sigma0"])
+@pytest.mark.parametrize("name", ["serve", "slider", "stream step", "one band",
+                                  "column slice"])
+def test_carry_route_kernels_match_plain(cuda, name, with_sigma0):
+    """The ends kernel and the solve kernel, one launch each counted,
+    against the dense product, the carry's product and the einsum at the
+    main paths' shapes (the serve cell's, the slider's d = 12, the frames
+    route's column slice), with and without an incoming state; a second
+    pair of launches bit for bit."""
+    gs = importlib.import_module(
+        "dsp_audio_project_tpu_torch.kernels.group_states")
+    inj, toe, carry_w = carry_case(name, cuda)
+    sigma0 = (torch.randn(inj.shape[:-3] + inj.shape[-1:], device=cuda,
+                          generator=torch.Generator(cuda).manual_seed(3))
+              if with_sigma0 else None)
+    reset_launch_counts()
+    first = hold_solve(inj, toe, carry_w, sigma0)
+    counts = launch_counts()
+    assert counts["group_ends"] == 1 and counts["group_solve"] == 1
+    again = gs.group_true_states(inj, toe, carry_w, sigma0)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], first[2]) and torch.equal(again[1], first[0])
+    assert torch.equal(again[2], first[3])
+
+
+def test_carry_route_ragged_tiles_and_one_block(cuda):
+    """Past one tile of groups and not a multiple of it or of the chunk
+    (G = 100, 130, 300), one block (K = 1: sigma is the incoming state), a
+    carry over 70 blocks (three a lane) and blocks of a signal split over
+    two CUDA blocks (K = 6), each with an incoming state."""
+    from dsp_audio_project_tpu_torch.ops.eq import block_tables
+
+    cfg = pt.EQConfig.from_gains(GAINS)
+    for G, K in ((100, 3), (130, 1), (300, 2), (8, 70), (16, 6)):
+        ops = make_block_operators(cfg.active_bands(48000), 48000, cfg.q,
+                                   G * 32, 32)
+        tabs = block_tables(ops, cuda, K)
+        rng = np.random.default_rng(G + K)
+        inj = torch.as_tensor(rng.standard_normal((3, K, G, 10)).astype(
+            np.float32), device=cuda)
+        sigma0 = torch.as_tensor(rng.standard_normal((3, 10)).astype(
+            np.float32), device=cuda)
+        _, _, s_true, sigma = hold_solve(inj, tabs["group_toeplitz"],
+                                         tabs["carry_w"], sigma0)
+        if K == 1:
+            assert torch.equal(sigma[:, 0], sigma0)
+
+
+def test_cat_route_solve_is_two_launches(cuda, monkeypatch):
+    """The cat route's state solve (``ops/eq._true_states`` with the carry
+    triangle) is the ends kernel and the solve kernel, one launch each,
+    and calls no torch product (no cuBLAS carry, no einsum entry)."""
+    from dsp_audio_project_tpu_torch.ops.eq import _true_states, block_tables
+
+    inj, toe, _ = state_case("serve", cuda)
+    cfg = pt.EQConfig.from_gains(GAINS)
+    ops = make_block_operators(cfg.active_bands(48000), 48000, cfg.q,
+                               128 * 160, 160)
+    tabs = block_tables(ops, cuda, inj.shape[1])
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a torch product inside the state solve")
+
+    for name in ("matmul", "einsum", "addmm", "mm", "bmm"):
+        monkeypatch.setattr(torch, name, refuse)
+    monkeypatch.setattr(torch.Tensor, "__matmul__", refuse)
+    reset_launch_counts()
+    s_true, end, sigma = _true_states(inj, tabs)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    assert counts == {"group_ends": 1, "group_solve": 1}
+    assert s_true.shape == inj.shape and end.shape == sigma.shape
+
+
+def test_carry_route_replays_from_a_cuda_graph(cuda):
+    """The two launches captured once and replayed on new injections and a
+    new incoming state: equal to the eager call bit for bit."""
+    gs = importlib.import_module(
+        "dsp_audio_project_tpu_torch.kernels.group_states")
+    inj, toe, carry_w = carry_case("serve", cuda)
+    buf, s0 = inj.clone(), torch.zeros(inj.shape[0], inj.shape[-1],
+                                       device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gs.group_true_states(buf, toe, carry_w, s0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = gs.group_true_states(buf, toe, carry_w, s0)
+    for k in (1, 2):
+        buf.copy_(inj * k - 0.5)
+        s0.fill_(0.25 * k)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = gs.group_true_states(buf, toe, carry_w, s0)
+        for a, b in zip(out, eager):
+            assert torch.equal(a, b)
 
 
 def test_group_states_raise_when_the_kernel_cannot_build(cuda, monkeypatch):

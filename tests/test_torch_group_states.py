@@ -5,16 +5,22 @@ where the wrappers run their plain versions.
   Toeplitz bit for bit: block (j, g) is the first block row's tap T_{g-j}
   for j <= g and zero above (the static tables of ``make_block_operators``
   at d = 10 and 12, the dynamic ones of ``dynamic_operators_plain``), and
-  the taps are group_pows transposed.  The kernel reads only the taps.
-* ``group_states_mirror``, the kernel's scan step by step, against
-  the plain dense product (> 120 dB and max abs err <= 1e-5 * max|ref|)
-  and against the JAX package's ``_grouped_states`` on the same seeded
-  numpy input (>= 110 dB), at chunks c in {1, 4, 8, 16, 32, G} (the
-  kernel's is 4), G in {1, 16, 100, 128, 300} (ragged chunks and tiles)
-  and on a strided view.
-* The wrappers' CPU route is the plain version; the entry states' plain
-  version equals the einsum against group_pows it replaced, bit for bit;
-  the wrappers' argument checks raise.
+  the taps are group_pows transposed; so is every carry triangle, its
+  first block row the powers of A^block.  The kernels read only the taps.
+* The mirrors of the kernels' arithmetic (``group_states_mirror``: the
+  ends kernel, then the solve kernel with a zero seed or a seed;
+  ``group_ends_mirror``; ``group_solve_mirror``: the carry route's two
+  kernels) against the plain versions (> 120 dB and max abs err <= 1e-5 *
+  max|ref|) and against the JAX package's ``_grouped_states``,
+  ``_carry_states`` and entry einsum on the same seeded numpy input (>=
+  110 dB), at chunks c in {1, 4, 8, 16, 32, G} (the kernels' is 4), G in
+  {1, 8, 16, 100, 128, 200, 300} (ragged chunks and tiles), strided views
+  and a nonzero incoming state.
+* The wrappers' CPU route is the plain version, and the EQ's state solve
+  on a CPU tensor is the chain it was before the kernels, bit for bit;
+  the entry states' plain version equals the einsum against group_pows it
+  replaced; the wrappers' argument checks raise; the CUDA source's kernel
+  names keep the benchmark's name pattern.
 
 The kernels themselves run only on the card: tests/test_torch_gpu.py holds
 them against the plain versions there.
@@ -182,13 +188,17 @@ def test_cpu_route_is_the_plain_version():
 
 
 def test_chunk_multiply_adds_counts_the_scan():
-    """One tile of 128 groups in 32 chunks of 4: the triangles' 6 taps a
-    chunk, the scan's 31 + 30 + 28 + 24 + 16 chunk steps and the 124
-    entering states past the first chunk; each tile after adds its carry
-    and its first chunk's four."""
-    assert gs.chunk_multiply_adds(128, 10) == (192 + 129 + 124) * 100
-    assert gs.chunk_multiply_adds(256, 2) == (2 * 445 + 5) * 4
-    assert gs.chunk_multiply_adds(1, 12) == 445 * 144
+    """The kernels' multiply-adds (the bounds' operations): the solve's
+    states a product by T_1 a group (a ragged tile whole); the ends
+    kernel's 3 taps a chunk and the scan's 31 + 30 + 28 + 24 + 16 chunk
+    steps a tile, and each tile after the first its carry; the carry's
+    tree at every 4th block (here K = 4: one tree, lane 31's chunk of one
+    block and no scan step) and one product for each block between."""
+    assert gs.chunk_multiply_adds(128, 10) == 128 * 100
+    assert gs.chunk_multiply_adds(1, 12) == 128 * 144
+    assert gs.ends_multiply_adds(128, 10) == (96 + 129) * 100
+    assert gs.ends_multiply_adds(256, 2) == (2 * 225 + 1) * 4
+    assert gs.solve_multiply_adds(128, 10, 4) == (4 * (128 + 32) + 3) * 100
 
 
 def test_wrappers_check_their_arguments():
@@ -207,3 +217,225 @@ def test_wrappers_check_their_arguments():
         gs.group_entry_states(inj, torch.zeros(3, d), toe)
     with pytest.raises(ValueError, match="is on"):
         gs.group_entry_states(inj, torch.zeros(2, d).to("meta"), toe)
+
+
+# ---- the carry route: the ends kernel, the solve kernel, the carry ---------
+
+K_BLOCKS = 6      # blocks a signal in the carry route's tests (n = 1 chunk a lane)
+
+
+def injections(G: int, strided: bool, seed: int, d: int = 10, lead=(2, 3)):
+    """Seeded normal injections (lead..., G, d), as the frames route's
+    column slice of [y0 | inj | 0] where ``strided``."""
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.standard_normal(lead + (G, d + 12)).astype(np.float32))
+    inj = x[..., 5:5 + d] if strided else x[..., :d].contiguous()
+    assert inj.is_contiguous() != strided
+    return inj
+
+
+def hold(got, ref):
+    """> 120 dB and max abs err <= 1e-5 * max|ref|, or equal at all zeros."""
+    assert got.shape == ref.shape
+    top = float(ref.abs().max())
+    if top == 0.0:
+        assert torch.equal(got, ref)
+        return
+    assert snr_db(ref.numpy().ravel(), got.numpy().ravel()) > 120
+    assert float((got - ref).abs().max()) <= 1e-5 * top
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["zero", "seeded"])
+@pytest.mark.parametrize("G", [1, 8, 128, 200])
+def test_solve_mirror_in_both_modes(G, seeded):
+    """The solve kernel's arithmetic (its zero-seed form for the split
+    callers, its seeded form for the carry route) against the dense
+    product and the entry states' einsum, on a strided view, ragged tiles
+    (G = 200) and one group a block."""
+    toe = f32(static_ops(GAINS_D10, G).group_toeplitz)
+    inj = injections(G, True, G + 7 * seeded)
+    s_in, end = gs.group_states_plain(inj, toe)
+    sigma = (torch.as_tensor(np.random.default_rng(G).standard_normal(
+        inj.shape[:-2] + (10,)).astype(np.float32)) if seeded else None)
+    got, got_end = gs.group_states_mirror(inj, toe, seed=sigma)
+    hold(got_end, end)
+    hold(got, s_in if sigma is None
+         else gs.group_entry_states_plain(s_in, sigma, toe))
+
+
+@pytest.mark.parametrize("G", [1, 8, 130, 200])
+def test_ends_mirror_matches_plain(G):
+    """The ends kernel's arithmetic: each block's zero-entry end, and the
+    state after every chunk of 4 groups (the full chunks; a partial last
+    chunk's entry is the solve kernel's scratch)."""
+    toe = f32(static_ops(GAINS_D12, G).group_toeplitz)
+    inj = injections(G, G % 2 == 0, 3 * G, d=12)
+    end, pre = gs.group_ends_mirror(inj, toe)
+    ref_end, ref_pre = gs.group_ends_plain(inj, toe)
+    assert pre.shape == ref_pre.shape == inj.shape[:-2] + (-(-G // 4), 12)
+    hold(end, ref_end)
+    full = G // 4
+    if full:
+        hold(pre[..., :full, :], ref_pre[..., :full, :])
+
+
+def jax_true_states(x_g: np.ndarray, gains: dict, G: int, sigma0):
+    """The JAX package's chain on grouped samples x_g (..., K, G, U):
+    ``_grouped_states``, ``_carry_states`` (its carry triangle, K <= 512)
+    and the entry einsum against group_pows, at HIGHEST precision."""
+    import jax
+
+    jops = jax_ops(gains, G)
+    with jax.default_matmul_precision("highest"):
+        s_in, end = jeq._grouped_states(jnp.asarray(x_g), jops)
+        sigma = jeq._carry_states(
+            end, jops, None if sigma0 is None else jnp.asarray(sigma0))
+        s_true = s_in + jnp.einsum(
+            "gef,...kf->...kge", jnp.asarray(jops.group_pows, jnp.float32),
+            sigma, precision=jax.lax.Precision.HIGHEST)
+    return tuple(np.asarray(a) for a in (s_true, end, sigma))
+
+
+@pytest.mark.parametrize("with_sigma0", [False, True], ids=["zero", "sigma0"])
+def test_carry_route_matches_jax(with_sigma0):
+    """``group_solve_plain`` (what the wrapper runs on the CPU) and the two
+    kernels' mirror against the JAX package's chain on the same seeded
+    numpy samples, with and without an incoming state: >= 110 dB (the
+    injections are rounded to float32 in each package's own product)."""
+    from dsp_audio_project_tpu_torch.ops.eq import _carry_weights
+
+    G = 128
+    ops = static_ops(GAINS_D10, G)
+    toe, carry_w = f32(ops.group_toeplitz), f32(_carry_weights(ops, K_BLOCKS))
+    rng = np.random.default_rng(41 + with_sigma0)
+    x_g = rng.standard_normal((2, K_BLOCKS, G, U)).astype(np.float32)
+    sigma0 = (rng.standard_normal((2, 10)).astype(np.float32)
+              if with_sigma0 else None)
+    want = jax_true_states(x_g, GAINS_D10, G, sigma0)
+    inj = torch.as_tensor(x_g) @ f32(ops.group_in)
+    s0 = None if sigma0 is None else torch.as_tensor(sigma0)
+    for got in (gs.group_solve_plain(inj, toe, carry_w, s0),
+                gs.group_solve_mirror(inj, toe, carry_w, s0)):
+        for g, w in zip(got, want):
+            assert g.shape == w.shape
+            assert snr_db(w.ravel(), g.numpy().ravel()) >= 110
+
+
+def test_solve_mirror_carries_many_blocks():
+    """The carry's tree over chunks of n = 3 blocks a lane (K = 70) and a
+    signal boundary inside a CUDA block's rows (K = 6 is not a multiple of
+    the block's 4 rows), against the plain carry."""
+    from dsp_audio_project_tpu_torch.ops.eq import _carry_weights
+
+    G = 8
+    ops = static_ops(GAINS_D10, G)
+    toe = f32(ops.group_toeplitz)
+    for K in (70, K_BLOCKS):
+        carry_w = f32(_carry_weights(ops, K))
+        rng = np.random.default_rng(K)
+        inj = torch.as_tensor(rng.standard_normal((3, K, G, 10)).astype(np.float32))
+        sigma0 = torch.as_tensor(rng.standard_normal((3, 10)).astype(np.float32))
+        for got, ref in zip(gs.group_solve_mirror(inj, toe, carry_w, sigma0),
+                            gs.group_solve_plain(inj, toe, carry_w, sigma0)):
+            hold(got, ref)
+
+
+@pytest.mark.parametrize("table", ["static", "dynamic"])
+def test_carry_triangles_first_row_is_the_powers(table):
+    """The solve kernel reads the carry from ``carry_w``'s first block row:
+    C_0 = I, C_1 = A^block transposed, and the whole triangle is block
+    lower-triangular Toeplitz in them, bit for bit (``_carry_weights``;
+    the dynamic builder's plain ``_lower_triangle``)."""
+    K, G = 9, 16
+    if table == "static":
+        from dsp_audio_project_tpu_torch.ops.eq import _carry_weights
+
+        ops = static_ops(GAINS_D12, G)
+        carry_w, a_blk = f32(_carry_weights(ops, K)), f32(ops.state_corr)
+    else:
+        cfg = EQConfig()
+        s, c = ted._band_trig(FS, cfg.band_centers, cfg.nyquist_safety)
+        outs = dynamic_operators_plain(
+            torch.tensor((6.0, -3.0, 0.0, 12.0, -15.0, 4.0)), torch.as_tensor(s),
+            torch.as_tensor(c), cfg.q, cfg.bypass_threshold_db, U, G, K)
+        carry_w, a_blk = outs[6], outs[5]
+    d = a_blk.shape[0]
+    taps = gs.toeplitz_taps(carry_w, d)
+    assert taps.shape == (K, d, d)
+    assert torch.equal(taps[0], torch.eye(d))
+    assert torch.equal(taps[1], a_blk.T)
+    assert torch.equal(carry_w, _lower_triangle(taps.transpose(-1, -2), K, d))
+
+
+def test_kernel_names_keep_the_benchmark_pattern():
+    """Every kernel of csrc/group_states.cu carries "gemm" in its name (the
+    benchmark files the state solve's device time under cuBLAS's pattern)
+    and no float64 type among its template arguments or parameters (the
+    slider's builder row, matched first, takes double / f64 names)."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(gs.__file__).parent.parent / "csrc"
+           / "group_states.cu").read_text()
+    kernels = re.findall(r"template <([^>]*)>\s*__global__ void[^\n]*\n(\w+)\(([^)]*)\)",
+                         src)
+    names = {name for _, name, _ in kernels}
+    assert names == {"group_ends_gemm_kernel", "group_solve_gemm_kernel",
+                     "group_entry_gemm_kernel"}
+    for params, name, args in kernels:
+        assert "gemm" in name and "f64" not in name
+        assert "double" not in params and "double" not in args
+
+
+def test_cpu_state_solve_is_the_chain_it_was():
+    """On a CPU tensor the EQ's state solve with the carry triangle (cat,
+    frames and dynamic routes) is the dense product, the carry's product
+    and the entry einsum, in that order, bit for bit; no kernel counted."""
+    from dsp_audio_project_tpu_torch.ops.eq import (
+        _carry_states, _true_states, block_tables,
+    )
+
+    G, K = 16, K_BLOCKS
+    ops = static_ops(GAINS_D10, G)
+    tables = block_tables(ops, "cpu", K)
+    assert "carry_w" in tables
+    inj = injections(G, False, 5, lead=(2, K))
+    sigma0 = torch.ones(2, 10) * 0.25
+    before = gs.group_ends.launches, gs.group_solve.launches
+    got = _true_states(inj, tables, sigma0)
+    s_in, end = gs.group_states_plain(inj, tables["group_toeplitz"])
+    sigma = _carry_states(end, tables["state_corr"], tables["carry_w"], sigma0)
+    want = (gs.group_entry_states_plain(s_in, sigma, tables["group_toeplitz"]),
+            end, sigma)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (gs.group_ends.launches, gs.group_solve.launches) == before
+    dyn = ted.DynOperators(*dynamic_operators_plain(
+        torch.tensor((6.0, -3.0, 0.0, 12.0, -15.0, 4.0)),
+        *map(torch.as_tensor, ted._band_trig(FS, EQConfig().band_centers,
+                                             EQConfig().nyquist_safety)),
+        EQConfig().q, EQConfig().bypass_threshold_db, U, G, K))
+    inj12 = injections(G, True, 9, d=12, lead=(1, K))
+    s_in, end = gs.group_states_plain(inj12, dyn.toe)
+    assert torch.equal(ted._dyn_states(inj12, dyn), gs.group_entry_states_plain(
+        s_in, _carry_states(end, dyn.A_blk, dyn.carry_w), dyn.toe))
+
+
+def test_carry_route_wrappers_check_their_arguments():
+    G, K, d = 4, 3, 2
+    toe, carry_w = torch.eye(G * d), torch.eye(K * d)
+    inj = torch.zeros(2, K, G, d)
+    end, pre = gs.group_ends(inj, toe)
+    assert end.shape == (2, K, d) and pre.shape == (2, K, 1, d)
+    with pytest.raises(ValueError, match="end"):
+        gs.group_solve(inj, toe, end[:, :2], pre, carry_w)
+    with pytest.raises(ValueError, match="pre"):
+        gs.group_solve(inj, toe, end, pre[..., :0, :], carry_w)
+    with pytest.raises(ValueError, match="sigma0"):
+        gs.group_solve(inj, toe, end, pre, carry_w, torch.zeros(3, d))
+    with pytest.raises(ValueError, match="carry_w"):
+        gs.group_solve(inj, toe, end, pre, carry_w[:-2, :-2])
+    with pytest.raises(TypeError, match="float32"):
+        gs.group_ends(inj.double(), toe)
+    s_true, sigma = gs.group_solve(inj, toe, end, pre, carry_w)
+    assert s_true.shape == inj.shape and sigma.shape == end.shape
