@@ -97,11 +97,13 @@ Phases, one or more lines each:
      ``forward_frames_dynamic_ops`` the frames kernel and K9; z >= 60 dB
      against the oracle for its gains, host vs traced builder >= 90 dB,
      cat vs frames >= 110 dB, the static table caches unchanged; each
-     traced builder call counted (it must launch the builder's kernels,
-     ``kernels/eq_design``, and the host builder must not), and those
-     kernels held against their plain version at the serving and slider
-     geometry (U, G, K = 160, 128, 144) for each gain vector: every table
-     within one float32 ulp of its largest magnitude; K1 at
+     traced builder call counted (it must launch the builder's kernel,
+     ``kernels/eq_design``, and the host builder must not), and that
+     kernel held against its plain version at the serving and slider
+     geometry (U, G, K = 160, 128, 144) for each gain vector and at three
+     bands: every table within one float32 ulp of its largest magnitude,
+     a second call bit for bit; its device µs (profiler), launches a call,
+     registers, spills and blocks an SM, beside its bound; K1 at
      V = P + 12 = 172 and K9 at d = 12 vs plain (> 120 dB); then the
      gain change inside one captured CUDA graph: graph (change) runs the
      device builder and the G2 fold from a gains buffer, graph (cat) the
@@ -1642,6 +1644,7 @@ DYN_GAINS = ((6.0, -3.0, 0.0, 12.0, -15.0, 4.0),
 DYN_ORACLE_DB, DYN_BUILDERS_DB = 60.0, 90.0
 DESIGN_PROFILE = "device builder (traced), the slider's geometry"
 DYN_CAT_DB, DYN_GRAPH_DB = 110.0, 130.0
+DESIGN_PROFILE_CALLS, DESIGN_PROFILE_TIMEOUT_S = 20, 300
 
 
 def dyn_oracle(pipe, want: list, gains) -> list:
@@ -1680,20 +1683,17 @@ def dyn_agree(what: str, a: torch.Tensor, b: torch.Tensor,
 def design_bound(nb: int, U: int, G: int, K: int) -> tuple[float, str]:
     """The device builder's bound at (U, G, K): the float32 tables written
     once (the inputs, 20 bytes a band, read once) at PEAK_BYTES, against
-    the float64 products its kernels raise (the heads' chains, then each
-    power from the heads of its set bits, d^3 multiply-adds each; the
-    vectors of pu) at PEAK_FP64."""
+    the float64 products of its schedule (one squaring chain of A to the
+    largest exponent's top bit, then each power's product of the heads of
+    its exponent's set bits, d^3 multiply-adds each; the vectors of pu) at
+    PEAK_FP64."""
+    from dsp_audio_project_tpu_torch.kernels.eq_design import exponents
+
     d = 2 * nb
     kd = K if 1 < K and K * d <= 2048 else 0
-
-    def extra(n):                      # products after the first head
-        return max(bin(n).count("1") - 1, 0)
-
-    chain = (U.bit_length() - 1 + extra(U) + G.bit_length() - 1 + extra(G)
-             + ((kd - 1).bit_length() - 1 if kd > 1 else 0))
-    products = (chain + sum(extra(u) for u in range(U))
-                + sum(extra(g) for g in range(G + 1))
-                + sum(extra(k) for k in range(kd)))
+    exps = [e for table in exponents(U, G, kd) for e in table]
+    products = (max(exps).bit_length() - 1
+                + sum(max(bin(e).count("1") - 1, 0) for e in exps))
     flops = 2.0 * (products * d ** 3 + U * (2 * d * d + d))
     nbytes = 4.0 * (2 * U * d + U * U + (G * d) ** 2 + G * d * d + d * d
                     + (kd * d) ** 2) + 20.0 * nb
@@ -1728,38 +1728,110 @@ def design_tables_agree(tag: str, got, ref) -> float:
     return err, worst, same, total
 
 
+def design_profile_worker(fs_out: float, U: int, G: int, K: int) -> None:
+    """``--design-profile-worker``: DESIGN_PROFILE_CALLS calls of the
+    device builder for DYN_GAINS[0] at (U, G, K) under the profiler; prints
+    {kernel: device µs a call} as the last line."""
+    import dsp_audio_project_tpu_torch as pt
+    from dsp_audio_project_tpu_torch.kernels.eq_design import eq_design
+    from dsp_audio_project_tpu_torch.ops.eq_dynamic import _band_trig
+    from dsp_audio_project_tpu_torch.utils.deviceprof import (
+        profile_device_span,
+    )
+
+    eq = pt.EQConfig()
+    s, c = _band_trig(fs_out, eq.band_centers, eq.nyquist_safety)
+    args = (torch.tensor(DYN_GAINS[0], device=DEVICE),
+            torch.as_tensor(s, device=DEVICE),
+            torch.as_tensor(c, device=DEVICE), eq.q, eq.bypass_threshold_db,
+            U, G, K)
+    eq_design(*args)
+    torch.cuda.synchronize()
+
+    def calls():
+        for _ in range(DESIGN_PROFILE_CALLS):
+            eq_design(*args)
+
+    prof = profile_device_span(calls, top=None)
+    print(json.dumps({name: ms / DESIGN_PROFILE_CALLS * 1e3
+                      for name, ms in prof.ops}), flush=True)
+
+
 def check_design(pipe, n: int) -> dict:
     """The device builder's kernels (``kernels/eq_design``) against their
     plain version at the serving and slider geometry (both n samples at
-    160/147) for each of DYN_GAINS; the record entry, with the builder's
-    device time read by ``measure_device``."""
+    160/147) for each of DYN_GAINS, and at three bands (d = 6, the 8-byte
+    stores); each kernel's device µs (profiler), launches a call, and
+    registers, spills and blocks an SM; the record entry, with the
+    builder's device time read by ``measure_device``."""
     from dsp_audio_project_tpu_torch.kernels.eq_design import (
-        dynamic_operators_plain, eq_design,
+        cuda_layout, dynamic_operators_plain, eq_design, launch_grid,
+        occupancy,
     )
     from dsp_audio_project_tpu_torch.ops.eq_dynamic import _band_trig
     from dsp_audio_project_tpu_torch.utils.device import device_tables
 
     U, G, K = pipe.dynamic_eq_geometry(FS, n)
     eq = pipe.config.eq
-    sin_w0, cos_w0 = device_tables(_band_trig, pipe.config.src.output_rate(FS),
-                                   eq.band_centers, eq.nyquist_safety,
-                                   device=DEVICE)
+    fs_out = pipe.config.src.output_rate(FS)
     err, args = 0.0, None
-    for gains in DYN_GAINS:
+    cases = [(gains, eq.band_centers) for gains in DYN_GAINS]
+    cases.append((DYN_GAINS[0][:3], tuple(eq.band_centers[:3])))
+    for gains, centers in cases:
+        sin_w0, cos_w0 = device_tables(_band_trig, fs_out, centers,
+                                       eq.nyquist_safety, device=DEVICE)
         g = torch.tensor(gains, device=DEVICE)
-        args = (g, sin_w0, cos_w0, eq.q, eq.bypass_threshold_db, U, G, K)
-        got, ref = eq_design(*args), dynamic_operators_plain(*args)
+        case = (g, sin_w0, cos_w0, eq.q, eq.bypass_threshold_db, U, G, K)
+        got, ref = eq_design(*case), dynamic_operators_plain(*case)
+        again = eq_design(*case)
         torch.cuda.synchronize()
         e, worst, same, total = design_tables_agree("dynamic", got, ref)
+        if not all(a is None or torch.equal(a, b)
+                   for a, b in zip(got, again)):
+            raise RuntimeError("[dynamic] eq_design: a second call differs")
         err = max(err, e)
         log(f"[dynamic] eq_design at U, G, K = {U}, {G}, {K}, gains {gains}: "
             f"every table within {worst:.2f} float32 ulp of its largest "
             f"magnitude (bound 1), {same} of {total} values bit for bit, "
-            f"max abs err {e:.3e}")
+            f"max abs err {e:.3e}; a second call bit for bit")
+        if len(gains) == len(eq.band_centers):
+            args = case
+    nb = len(eq.band_centers)
+    grid = launch_grid(nb, U, G, K)
+    lay = cuda_layout(nb, U, G, K)
+    # Each kernel's device µs from a profile in a child process: a
+    # profiler session opened here, before the run's CUDA graph captures,
+    # makes later sessions lose their records.
+    proc = subprocess.run(
+        [sys.executable, __file__, "--design-profile-worker", str(fs_out),
+         str(U), str(G), str(K)], capture_output=True, text=True,
+        timeout=DESIGN_PROFILE_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError("[dynamic] the builder's profile worker failed:\n"
+                           + (proc.stdout + proc.stderr)[-3000:])
+    split = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"[dynamic] eq_design: {grid['launches']} launches a call (the "
+        f"design kernel's {grid['blocks']} blocks, {grid['power_blocks']} of "
+        f"them power blocks, chains of {lay['heads']} passes; the expand), "
+        f"device µs a call (profiler in a child process, "
+        f"{DESIGN_PROFILE_CALLS} calls): "
+        + ", ".join(f"{name[:56]} {us:.2f}" for name, us in split.items()))
+    for which in ("design", "expand"):
+        occ = occupancy(which, nb)
+        log(f"[dynamic] occupancy {which} (d = {2 * nb}): "
+            f"{occ['blocks_per_sm']} blocks of {occ['threads']} threads an "
+            f"SM, {occ['registers']} registers, {occ['local_bytes']} local "
+            f"(spilled) bytes a thread, {occ['smem_bytes']} shared bytes a "
+            f"block")
+    bound = design_bound(nb, U, G, K)
+    chain = sum(us for name, us in split.items()
+                if "eq_design_f64_kernel" in name)
+    log(f"[dynamic] eq_design bound {bound[0] * 1e3:.2f} µs ({bound[1]}); "
+        f"the chain's measured latency floor: the design kernel "
+        f"{chain:.2f} µs, its longest chain {max(lay['heads'])} passes")
     return {"max_abs_err": err, "kern": functools.partial(eq_design, *args),
             "plain": functools.partial(dynamic_operators_plain, *args),
-            "lib": None, "device_timed": True,
-            "bound": design_bound(len(eq.band_centers), U, G, K)}
+            "lib": None, "device_timed": True, "bound": bound}
 
 
 def phase_dynamic(pipe, x: torch.Tensor, want: list):
@@ -3593,10 +3665,8 @@ class LaunchChecker:
                            (out, ref if mag else torch.view_as_real(ref)),
                            bound_db=110.0)
 
-        def design(gains, sin_w0, cos_w0, q, thr, U, G, lay, outs, table,
-                   scratch):
-            real[4](gains, sin_w0, cos_w0, q, thr, U, G, lay, outs, table,
-                    scratch)
+        def design(gains, sin_w0, cos_w0, q, thr, U, G, lay, outs, table):
+            real[4](gains, sin_w0, cos_w0, q, thr, U, G, lay, outs, table)
             kd = lay["K_dense"]
             if self._fresh(("eq_design", U, G, kd)):
                 ref = ed.dynamic_operators_plain(gains, sin_w0, cos_w0, q,
@@ -3937,7 +4007,7 @@ def main() -> None:
     for tag, k in kernels.items():
         # The plain E2 loops over 8192 steps on the host: fewer runs.
         reps = k.get("plain_reps", REPS)
-        # The builder's three launches are ~25 us: read on the device
+        # The builder's two launches are ~15 us: read on the device
         # (measure_device), not through the wrapper's host time.
         timings[tag] = {"ms": (1e3 * measure_device(k["kern"], calls=20)
                                if k.get("device_timed")
@@ -4049,5 +4119,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if sys.argv[1:2] == ["--capture-fail-worker"]:
         capture_fail_worker()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--design-profile-worker"]:
+        design_profile_worker(float(sys.argv[2]), *map(int, sys.argv[3:6]))
         sys.exit(0)
     sys.exit(main())

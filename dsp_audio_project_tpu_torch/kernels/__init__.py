@@ -34,7 +34,7 @@ Kernels that replace no TPU kernel:
 
 | kernel | what it replaces | file |
 |--------|------------------|------|
-| eq_design | the device gain builder's ~220 float64 torch ops (ops/eq_dynamic.build_dynamic_operators; the JAX package's df32 ops, ops/eq_dynamic.py:228 _dynamic_operators) | eq_design.py + csrc/eq_design.cu (CUDA, three launches: one block designs the bands and squares the powers' heads, a block a power multiplies heads, a block a row writes the triangles) |
+| eq_design | the device gain builder's ~220 float64 torch ops (ops/eq_dynamic.build_dynamic_operators; the JAX package's df32 ops, ops/eq_dynamic.py:228 _dynamic_operators) | eq_design.py + csrc/eq_design.cu (CUDA, two launches: blocks of a pair of powers each design the bands and run the squaring chain on the FP64 tensor cores while zero blocks write the triangles' zeros; a programmatic dependent launch writes the triangles' rows) |
 | group_ends, group_solve | the EQ's state solve where the tables hold the carry triangle (the cat, frames, flat and dynamic routes): the dense (B K, G d) @ (G d, G d) product against the block-Toeplitz table, the carry's product against `carry_w` and the entry states' einsum on cuBLAS (the JAX package leaves them to XLA, ops/eq.py:106 _grouped_states, :568 _carry_states, :186) | group_states.py + csrc/group_states.cu (CUDA cores, float32 in and out, float64 sums; a warp a block row: the ends kernel, every chunk's zero-entry end by a scan over the lanes; the solve kernel, the carry from `carry_w`'s first block row and s_true written once) |
 | group_states, group_entry_states | the same solve split around a carry of the caller's own (the streams, the sharded pipeline, long uploads): the zero-entry states and the entry states' einsum | group_states.py + csrc/group_states.cu (the ends kernel and the solve kernel with a zero seed; an entry kernel, float32) |
 
@@ -81,7 +81,7 @@ KERNELS = (polyphase_fir_class_rect_cat, fir_frames_kernel, eq_finish,
 def launch_counts() -> dict:
     """{wrapper name: launches} for every hand-written kernel (K4-K6, E1
     and E3-E5 count their launches of the frames kernel, which counts them
-    too; eq_design a call of its three kernels)."""
+    too; eq_design a call of its two kernels)."""
     return {k.__name__: k.launches for k in KERNELS}
 
 

@@ -14,22 +14,28 @@ ops in df32 (``dsp_audio_project_tpu/ops/eq_dynamic.py:228
 _dynamic_operators``, ``:304 _lower_triangle``, ``:536
 build_dynamic_operators``).  Written by hand because the plain torch
 version, ~220 small float64 ops a gain change, was half of a slider
-render's device time.  Three launches (``csrc/eq_design.cu``): one block
-designs the bands and squares the heads P^(2^i) of the three tables in a
-chain (``eq_design_f64_kernel``); a block a power multiplies the heads of
-its index's set bits and writes its share of the small tables
-(``eq_powers_f64_kernel``); a block a row writes the two triangles and
-fir_t with 16-byte stores (``eq_expand_f64_kernel``).  The first is bound
-by its chain of ~22 small products, the last by its ~21.5 MB of output at
-the slider's geometry (U = 160, G = 128, K = 144, d = 12).
+render's device time.  Two launches (``csrc/eq_design.cu``): in
+``eq_design_f64_kernel`` a power block owns a pair of powers of one
+table, each A^e for its exponent e (u, U g or U G k), designs the bands
+itself and squares the heads A^(2^i) in a chain, multiplying each power's
+running product by the heads of its exponent's set bits side by side with
+the squarings, then writes its powers' share of the small tables (and the
+powers of Q and R, transposed, to a table); the other blocks write the
+zeros left of the triangles' block diagonal meanwhile.  No block waits for
+another.  ``eq_expand_f64_kernel``, a programmatic dependent launch,
+writes the triangles' rows from their diagonal block on.  The chain (22
+passes at the slider's geometry, U = 160, G = 128, K = 144, d = 12) is
+bound by its latency, the tables' ~21.5 MB by bytes.
 
 ``dynamic_operators_plain`` is the torch body the kernels replace, kept as
 it was (``ops/eq_dynamic.py`` before them): the wrapper's route for a CPU
 tensor, and what the card tests and ``chip_smoke.py`` hold the kernels
 against.  It raises the powers by batched doubling; the kernels multiply
 the same float64 values in another order, so every table agrees with it
-to one float32 ulp of the table's largest magnitude (on an H100, so far,
-bit for bit).
+to one float32 ulp of the table's largest magnitude.
+``design_schedule_mirror`` repeats the kernel's order in float64 torch
+ops (which heads feed which power, each product's sum in k order) for the
+CPU tests and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -43,14 +49,16 @@ from . import _build
 
 _LAUNCHERS = {
     "eq_design_launch": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-    + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 10,
+    + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 9,
+    "eq_design_occupancy": [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    "eq_design_grid": [ctypes.c_int] * 4 + [ctypes.c_void_p],
 }
 
 # Dense-carry ceiling: up to this K*d the block carry is ONE (K d, K d)
 # triangle product; above it the log-depth scan.  2048: a 16 MB f32 table.
 _CARRY_DENSE_MAX_KD = 2048
 
-MAX_BANDS = 8              # the kernels' instantiations: d = 2 .. 16
+MAX_BANDS = 8              # the kernel's instantiations: d = 2 .. 16
 MAX_SIDE = 1 << 14         # U, G and a dense carry's K: keeps every index
                            # of the kernels in int
 
@@ -200,18 +208,27 @@ def dynamic_operators_plain(gains_db: torch.Tensor, sin_w0: torch.Tensor,
 # ---- the CUDA route -------------------------------------------------------
 
 
+def exponents(U: int, G: int, k_dense: int) -> tuple:
+    """The kernel's powers as exponents of A: (u for u < U, U g for g <=
+    G, U G k for k < K_dense)."""
+    return (list(range(U)), [U * g for g in range(G + 1)],
+            [U * G * k for k in range(k_dense)])
+
+
 def cuda_layout(nb: int, U: int, G: int, K: Optional[int]) -> dict:
-    """The kernels' geometry and buffer sizes for nb bands at (U, G, K),
-    or ValueError where the CUDA route does not take the shape (nb above
-    ``MAX_BANDS``, U or G outside 1..``MAX_SIDE``, K below 1).  The kernels
-    read K only as ``K_dense``, which the dense carry's K d <= 2048 bounds,
-    so any K >= 1 (or None) is taken.
+    """The kernel's geometry for nb bands at (U, G, K), or ValueError
+    where the CUDA route does not take the shape (nb above ``MAX_BANDS``, U
+    or G outside 1..``MAX_SIDE``, K below 1).  The kernel reads K only as
+    ``K_dense``, which the dense carry's K d <= 2048 bounds, so any K >= 1
+    (or None) is taken.
 
     ``K_dense``: K when the dense carry is built, else 0.  ``heads``: the
-    powers P^(2^i) raised in a chain for each table (A, A^U, A^UG), the
-    bits of its largest exponent.  ``scratch_doubles``: seq, D, B, C and
-    the heads; ``table_floats``: the float32 transposed pg and pk the
-    expand reads."""
+    bits of each table's largest exponent of A (A^u, Q^g, R^k), the passes
+    of its blocks' chain.  ``power_blocks``: a pair of powers a block (the
+    design kernel's other blocks write zeros).  ``launches``: two, the
+    design kernel and the expand.  ``table_floats``: the transposed float32
+    pg and pk the expand reads, the one scratch a call allocates besides
+    its outputs (no flags: no block waits for another of its grid)."""
     if not 1 <= nb <= MAX_BANDS:
         raise ValueError(f"the CUDA gain builder takes 1..{MAX_BANDS} bands "
                          f"(d <= {2 * MAX_BANDS}), got {nb}")
@@ -223,15 +240,16 @@ def cuda_layout(nb: int, U: int, G: int, K: Optional[int]) -> dict:
         raise ValueError(f"the CUDA gain builder takes K >= 1, got {K}")
     d = 2 * nb
     k_dense = K if _dense_carry(K, d) else 0
-    heads = (U.bit_length(), G.bit_length(),
-             (k_dense - 1).bit_length() if k_dense else 0)
+    heads = ((U - 1).bit_length(), (U * G).bit_length(),
+             (U * G * (k_dense - 1)).bit_length() if k_dense else 0)
+    blocks = sum((n + 1) // 2 for n in (U, G + 1, k_dense))
     return {"d": d, "K_dense": k_dense, "heads": heads,
-            "scratch_doubles": U + 1 + 2 * d + sum(heads) * d * d,
+            "power_blocks": blocks, "launches": 2,
             "table_floats": (G + 1 + k_dense) * d * d}
 
 
 def _launch(gains, sin_w0, cos_w0, q, threshold_db, U, G, lay, outs,
-            table, scratch):
+            table):
     lib = _build.load("eq_design", _LAUNCHERS)
     group_in, group_out, fir_t, toe, pows_g, A_blk, carry_w = outs
     with torch.cuda.device(gains.device):
@@ -240,8 +258,7 @@ def _launch(gains, sin_w0, cos_w0, q, threshold_db, U, G, lay, outs,
             gains.shape[0], U, G, lay["K_dense"], 2.0 * q, threshold_db,
             group_in.data_ptr(), group_out.data_ptr(), fir_t.data_ptr(),
             toe.data_ptr(), pows_g.data_ptr(), A_blk.data_ptr(),
-            0 if carry_w is None else carry_w.data_ptr(),
-            table.data_ptr(), scratch.data_ptr(),
+            0 if carry_w is None else carry_w.data_ptr(), table.data_ptr(),
             torch.cuda.current_stream(gains.device).cuda_stream,
         )
     _build.check(lib, err, "eq_design_launch")
@@ -258,7 +275,7 @@ def eq_design(gains_db: torch.Tensor, sin_w0: torch.Tensor,
     bands' geometry at the output rate (Nyquist clamp applied); ``q``, the
     bands' Q; ``threshold_db``, the band-skip threshold; U, G, K the
     unroll, groups a block and blocks.  A CPU tensor runs the plain
-    version; a CUDA tensor launches the three kernels (``cuda_layout``
+    version; a CUDA tensor launches the two kernels (``cuda_layout``
     raises for a shape they do not take); anything else raises.
     """
     if not isinstance(gains_db, torch.Tensor) or gains_db.dtype != torch.float32:
@@ -286,20 +303,119 @@ def eq_design(gains_db: torch.Tensor, sin_w0: torch.Tensor,
     lay = cuda_layout(nb, U, G, K)
     d, kd = lay["d"], lay["K_dense"]
 
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
 
     outs = (empty(U, d), empty(d, U), empty(U, U), empty(G * d, G * d),
             empty(G, d, d), empty(d, d), empty(kd * d, kd * d) if kd else None)
-    table = empty(lay["table_floats"])
-    scratch = empty(lay["scratch_doubles"], dtype=torch.float64)
     _launch(gains_db.contiguous(), sin_w0.contiguous(), cos_w0.contiguous(),
-            q, threshold_db, U, G, lay, outs, table, scratch)
+            q, threshold_db, U, G, lay, outs, empty(lay["table_floats"]))
     eq_design.launches += 1
     return outs
 
 
 eq_design.launches = 0
+
+
+def occupancy(which: str, nb: int) -> dict:
+    """The card's view of a kernel (``which``: 'design' or 'expand') at nb
+    bands: blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    registers and local (spilled) bytes a thread, static shared bytes and
+    threads a block."""
+    lib = _build.load("eq_design", _LAUNCHERS)
+    out = (ctypes.c_int * 5)()
+    err = lib.eq_design_occupancy(("design", "expand").index(which), nb, out)
+    _build.check(lib, err, "eq_design_occupancy")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes",
+                     "smem_bytes", "threads"), out))
+
+
+def launch_grid(nb: int, U: int, G: int, K: Optional[int]) -> dict:
+    """What the launcher gives the card for one call at (nb, U, G, K):
+    launches, the design kernel's blocks (power blocks first, then zero
+    blocks) and its power blocks."""
+    lib = _build.load("eq_design", _LAUNCHERS)
+    out = (ctypes.c_int * 3)()
+    err = lib.eq_design_grid(nb, U, G, cuda_layout(nb, U, G, K)["K_dense"],
+                             out)
+    _build.check(lib, err, "eq_design_grid")
+    return dict(zip(("launches", "blocks", "power_blocks"), out))
+
+
+# ---- the kernel's schedule in float64 torch ops (tests, chip_smoke.py) -----
+
+
+def ordered_product(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """X @ Y for (..., d, d) float64, each output's d-term sum in k order,
+    as the kernel's k-steps of 4 run in order on the tensor cores (which
+    fuse each multiply-add; here each product is rounded first)."""
+    acc = torch.zeros(torch.broadcast_shapes(X.shape, Y.shape),
+                      dtype=X.dtype, device=X.device)
+    for k in range(X.shape[-1]):
+        acc = acc + X[..., :, k, None] * Y[..., None, k, :]
+    return acc
+
+
+def powers_mirror(A: torch.Tensor, exps) -> torch.Tensor:
+    """A^e for each exponent in ``exps`` (n, d, d), float64, in the
+    kernel's order: pass p squares head p (A^(2^p)) into head p + 1 and
+    multiplies the running product of each exponent with bit p by head p
+    (run @ head; its first factor copied).  0 gives the identity."""
+    e = torch.tensor(list(exps), dtype=torch.int64, device=A.device)
+    d = A.shape[-1]
+    run = torch.eye(d, dtype=A.dtype, device=A.device).repeat(len(e), 1, 1)
+    started = torch.zeros(len(e), dtype=torch.bool, device=A.device)
+    head = A
+    for p in range(int(e.max()).bit_length() if len(e) else 0):
+        take = ((e >> p) & 1).bool()
+        grown = ordered_product(run, head)
+        run = torch.where((take & started)[:, None, None], grown,
+                          torch.where((take & ~started)[:, None, None],
+                                      head.expand_as(run), run))
+        started |= take
+        head = ordered_product(head, head)
+    return run
+
+
+def design_schedule_mirror(gains_db: torch.Tensor, sin_w0: torch.Tensor,
+                           cos_w0: torch.Tensor, q: float,
+                           threshold_db: float, U: int, G: int,
+                           K: Optional[int] = None) -> tuple:
+    """The kernel's tables by its schedule, float64 torch ops rounded to
+    float32 at the end, in ``dynamic_operators_plain``'s field order: the
+    plain version's band design and composition (the kernel repeats its
+    operations), every power by ``powers_mirror``, the vectors' sums in the
+    kernel's k order, fir_t and the triangles as the kernel writes them."""
+    g = gains_db.to(torch.float64)
+    g = torch.where(g.abs() > threshold_db, g, torch.zeros_like(g))
+    A, Bv, Cv, D = _compose_cascade(*_band_realization(sin_w0, cos_w0, g, q))
+    d = A.shape[0]
+    f32 = torch.float32
+    k_dense = K if _dense_carry(K, d) else 0
+    e_u, e_g, e_k = exponents(U, G, k_dense)
+    pu = powers_mirror(A, e_u)                             # (U, d, d)
+    pg = powers_mirror(A, e_g)                             # (G + 1, d, d)
+    gin = torch.zeros(U, d, dtype=A.dtype, device=A.device)
+    CA_u = torch.zeros(U, d, dtype=A.dtype, device=A.device)
+    for k in range(d):
+        gin = gin + pu[:, :, k] * Bv[k]
+        CA_u = CA_u + Cv[k] * pu[:, k, :]
+    seq = torch.zeros(U, dtype=A.dtype, device=A.device)
+    for c in range(d):
+        seq = seq + CA_u[:, c] * Bv[c]
+    uu = torch.arange(U, device=A.device)
+    idx = uu[:, None] - 1 - uu[None, :]
+    fir = torch.where(idx >= 0, seq[idx.clamp(0, U - 1)],
+                      torch.zeros_like(seq))
+    fir = fir + D * torch.eye(U, dtype=fir.dtype, device=fir.device)
+    pows_g = pg[:G].to(f32)
+    carry_w = None
+    if k_dense:
+        carry_w = _lower_triangle(powers_mirror(A, e_k).to(f32), k_dense,
+                                  d)
+    return (gin.flip(0).to(f32), CA_u.T.contiguous().to(f32),
+            fir.T.contiguous().to(f32), _lower_triangle(pows_g, G, d),
+            pows_g, pg[G].to(f32), carry_w)
 
 
 def ulp_error(got: torch.Tensor, ref: torch.Tensor) -> float:

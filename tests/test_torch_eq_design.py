@@ -12,6 +12,11 @@ where the wrapper runs its plain version.
   >= 90 dB, the tolerances of test_torch_eq_dynamic.py's
   ``test_device_builder_matches_host_builder``.
 * carry_w is None where the dense carry is not built (K = 1, K d > 2048).
+* The kernel's schedule in float64 torch ops (``design_schedule_mirror``:
+  every power A^e as the product of the heads of e's set bits, each
+  product's sum in k order) within one float32 ulp of the plain version
+  at the small and slider geometries, 441/480's unroll, three bands (d %
+  4 != 0) and G = 1; its pieces against plain products.
 * The CUDA route's shape limits raise through ``cuda_layout``, without a
   card, and K past the dense carry is no limit; the wrapper's argument
   checks raise on the CPU.
@@ -30,7 +35,9 @@ from dsp_audio_project_tpu.config import EQConfig as JEQConfig
 from dsp_audio_project_tpu.ops import eq_dynamic as jed
 from dsp_audio_project_tpu_torch import EQConfig
 from dsp_audio_project_tpu_torch.kernels.eq_design import (
-    MAX_SIDE, cuda_layout, dynamic_operators_plain, eq_design,
+    MAX_SIDE, _band_realization, _compose_cascade, cuda_layout,
+    design_schedule_mirror, dynamic_operators_plain, eq_design, exponents,
+    ordered_product, powers_mirror, ulp_error,
 )
 from dsp_audio_project_tpu_torch.ops import eq_dynamic as ted
 from dsp_audio_project_tpu_torch.oracle import snr_db
@@ -51,7 +58,8 @@ SLIDER = (160, 128, 144)            # 60 s at 160/147: K d = 1728
 
 def design_inputs(gains, fs=FS):
     cfg = EQConfig()
-    s, c = ted._band_trig(fs, cfg.band_centers, cfg.nyquist_safety)
+    nb = len(gains)                 # the first nb of the six bands
+    s, c = ted._band_trig(fs, cfg.band_centers[:nb], cfg.nyquist_safety)
     return (torch.tensor(gains, dtype=torch.float32), torch.as_tensor(s),
             torch.as_tensor(c), cfg.q, cfg.bypass_threshold_db)
 
@@ -212,15 +220,19 @@ def test_carry_triangle_only_where_dense(K, dense):
 
 
 def test_cuda_layout_at_the_slider_geometry():
-    """Eight heads for each table (2^7 <= 160, 128, 143 < 2^8) in the
-    float64 scratch beside seq, D, B and C."""
+    """The chains' passes: the bits of each table's largest exponent of A
+    (159, 160 * 128, 160 * 128 * 143 < 2^22); a pair of powers a block;
+    two launches; a call's one scratch the transposed float32 pg and pk,
+    and no flags."""
     lay = cuda_layout(6, *SLIDER)
-    assert lay["d"] == 12 and lay["K_dense"] == 144
-    assert lay["heads"] == (8, 8, 8)
-    assert lay["scratch_doubles"] == 161 + 24 + 24 * 144
-    assert lay["table_floats"] == (129 + 144) * 144
+    assert lay == {"d": 12, "K_dense": 144, "heads": (8, 15, 22),
+                   "power_blocks": 80 + 65 + 72, "launches": 2,
+                   "table_floats": (129 + 144) * 144}
     small = cuda_layout(6, 20, 6, 1)
-    assert small["K_dense"] == 0 and small["heads"] == (5, 3, 0)
+    assert small["K_dense"] == 0 and small["heads"] == (5, 7, 0)
+    assert small["power_blocks"] == 10 + 4
+    assert [max(e, default=0).bit_length()
+            for e in exponents(*SLIDER)] == list(lay["heads"])
 
 
 @pytest.mark.parametrize("nb,U,G,K,match", [
@@ -249,7 +261,8 @@ def test_cuda_layout_takes_any_K_past_the_dense_carry(K):
     """The kernels read K only as K_dense (0 once K d > 2048), so a long
     upload (K = 18,000: 60 s at one group a block) is no error."""
     lay = cuda_layout(6, 160, 128, K)
-    assert lay["K_dense"] == 0 and lay["heads"] == (8, 8, 0)
+    assert lay["K_dense"] == 0 and lay["heads"] == (8, 15, 0)
+    assert lay["power_blocks"] == 80 + 65
     assert lay["table_floats"] == 129 * 144
 
 
@@ -265,3 +278,100 @@ def test_wrapper_checks_its_arguments():
         eq_design(g[None], s, c, q, thr, 16, 4, 2)
     with pytest.raises(ValueError, match="unsupported device"):
         eq_design(g.to("meta"), s.to("meta"), c.to("meta"), q, thr, 16, 4, 2)
+
+
+# ---- the kernel's schedule (design_schedule_mirror) -----------------------
+
+# (gains, (U, G, K)): the small and slider geometries, 441/480's unroll
+# (nine bits of A's chain), three bands (d = 6, d % 4 != 0: the 8-byte
+# expand) and G = 1.
+MIRROR_CASES = [(g, SMALL) for g in GAIN_SETS] + [
+    (g, SLIDER) for g in GAIN_SETS] + [
+    (GAIN_SETS[0], (441, 32, 40)), (GAIN_SETS[2], (441, 32, 40)),
+    ((6.0, -3.0, 12.0), SLIDER), ((-15.0, 9.0, 0.05), (160, 16, 129)),
+    (GAIN_SETS[0], (160, 1, 144)), (GAIN_SETS[1], (32, 1, 4)),
+]
+
+
+@pytest.mark.parametrize("gains,geometry", MIRROR_CASES)
+def test_schedule_mirror_within_one_ulp_of_plain(gains, geometry):
+    args = design_inputs(gains) + geometry
+    want = dynamic_operators_plain(*args)
+    got = design_schedule_mirror(*args)
+    for name, a, b in zip(ted.DynOperators._fields, got, want):
+        if b is None:
+            assert a is None, name
+            continue
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert ulp_error(a, b) <= 1.0, name
+
+
+def test_ordered_product_sums_in_k_order():
+    """Each output's sum in k order, checked against that order spelled
+    out, and near X @ Y."""
+    rng = np.random.default_rng(3)
+    X = torch.as_tensor(rng.standard_normal((5, 12, 12)))
+    Y = torch.as_tensor(rng.standard_normal((12, 12)))
+    got = ordered_product(X, Y)
+    for i, c in ((0, 0), (3, 7), (11, 11)):
+        want = torch.zeros(5, dtype=torch.float64)
+        for k in range(12):
+            want = want + X[:, i, k] * Y[k, c]
+        assert torch.equal(got[:, i, c], want)
+    assert torch.allclose(got, X @ Y, rtol=1e-13, atol=1e-13)
+
+
+def test_powers_mirror_feeds_each_power_its_heads():
+    """A^e for e = 0 (the identity), a lone bit (a head, copied), and
+    exponents of several bits against torch's matrix_power."""
+    g, s, c, q, _ = design_inputs(GAIN_SETS[0])
+    A = _compose_cascade(*_band_realization(s, c, g.double(), q))[0]
+    exps = [0, 1, 2, 3, 64, 159, 160 * 37, 160 * 128 * 143]
+    got = powers_mirror(A, exps)
+    assert torch.equal(got[0], torch.eye(12, dtype=torch.float64))
+    assert torch.equal(got[1], A)
+    assert torch.equal(got[2], ordered_product(A, A))
+    head = A
+    for _ in range(6):
+        head = ordered_product(head, head)
+    assert torch.equal(got[4], head)                  # A^64, a head
+    scale = float(A.abs().max())
+    for e, P in zip(exps, got):
+        want = torch.linalg.matrix_power(A, e)
+        assert float((P - want).abs().max()) <= 1e-9 * scale, e
+
+
+def test_design_phases_probe_reads_the_kernels_stamps():
+    """scripts/design_phases.py names every stamp of the kernel's source
+    (the chain's passes from its one ranged stamp) and defines the macro
+    in its stamped copy."""
+    from dsp_audio_project_tpu_torch.kernels import _build
+    from dsp_audio_project_tpu_torch.scripts import design_phases as dp
+
+    marked = dp.stamped((_build.CSRC / "eq_design.cu").read_text())
+    assert "#define DESIGN_STAMP(phase) design_stamp(phase)" in marked
+    names = dp.phases(marked)
+    assert names[0] == ("design", "start")
+    assert names[4] == ("design", "pass 0")
+    assert names[34] == ("design", "pass 30")
+    assert {"bands", "composition", "chain done", "zeros written",
+            "R's powers written", "rows written"} <= {
+                phase for _, phase in names.values()}
+
+
+def test_library_bounds_at_the_cells_shapes():
+    """scripts/library_bounds.py: the three library products at the cells'
+    shapes (60 s at 160/147: 18,432 padded frames of P = 160), each bound
+    the larger of its bytes and its operations."""
+    from dsp_audio_project_tpu_torch.scripts.library_bounds import products
+
+    got = products()
+    shapes = [b["shape"] for b in got.values()]
+    assert shapes == ["8 x (14, 187) @ (187, 160)",
+                      "1 x (18432, 160) @ (160, 172)",
+                      "8 x (18432, 160) @ (160, 172)"]
+    slider = got["slider weight-concat x_g @ dyn_frames_weights"]
+    nbytes = 4.0 * (18432 * 160 + 160 * 172 + 18432 * 172)
+    assert slider["bytes_us"] == pytest.approx(nbytes / 3.35e12 * 1e6)
+    assert slider["tf32x3_us"] == pytest.approx(
+        3 * slider["fp32_us"] * 67 / 495)

@@ -31,14 +31,20 @@ vs on the CPU, for each builder (> 110 dB; the cat path >= 110 dB against
 the frames path), K1 at V = 172 and K9 at d = 12 vs plain (> 120 dB), and
 a gain change inside one captured CUDA graph (bit for bit against the
 eager call, or >= 130 dB where a captured product takes another cuBLAS
-algorithm).  The device gain builder (``kernels/eq_design``: three
-kernels) against its plain version for five gain sets at five geometries
-(the slider's U, G, K = 160, 128, 144; no dense carry at K = 1 and K d >
-2048): every table within one float32 ulp of its largest magnitude, two
-launches bit for bit, one capture replayed for two gain vectors equal to
-the eager call, ``forward_frames_dynamic`` >= 120 dB against the same
-forward on the plain version's operators, and a build failure raises;
-a 60 s upload at one group a block (K = 18,432) builds bit for bit.  The
+algorithm).  The device gain builder (``kernels/eq_design``: the
+design kernel and the expand, a programmatic dependent launch) against
+its plain version for five gain sets at five geometries (the slider's U, G, K =
+160, 128, 144; no dense carry at K = 1 and K d > 2048), at three and five
+bands (d % 4 != 0, the 8-byte stores) and at the edges U = 128 and 256,
+G = 1, K = 129: every table within one float32 ulp of its largest
+magnitude, two calls bit for bit; a call is those two kernels in the
+profiler;
+one capture replayed for two gain vectors equal to the eager call, and
+one replayed 100 times with alternating vectors, each replay bit for bit
+against the eager call; two builders on two streams at once, each equal
+to its eager call; ``forward_frames_dynamic`` >= 120 dB against the same
+forward on the plain version's operators, and a build failure raises; a
+60 s upload at one group a block (K = 18,432) builds bit for bit.  The
 state solve (``kernels/group_states``): the zero-seed solve and the entry
 kernel against the dense product and the einsum at the main paths' shapes
 (the serve cell's, the frames route's column slice, the slider's d = 12, a
@@ -968,11 +974,13 @@ DESIGN_GEOMETRIES = ((160, 128, 144), (160, 16, 4), (441, 32, 40),
 
 
 def design_inputs(gains, device, fs=48000):
+    """The first len(gains) of the six bands' inputs."""
     from dsp_audio_project_tpu_torch.ops.eq_dynamic import _band_trig
     from dsp_audio_project_tpu_torch.utils.device import device_tables
 
     cfg = pt.EQConfig()
-    sin_w0, cos_w0 = device_tables(_band_trig, fs, cfg.band_centers,
+    centers = tuple(cfg.band_centers[:len(gains)])
+    sin_w0, cos_w0 = device_tables(_band_trig, fs, centers,
                                    cfg.nyquist_safety, device=device)
     g = torch.tensor(gains, dtype=torch.float32, device=device)
     return g, sin_w0, cos_w0, cfg.q, cfg.bypass_threshold_db
@@ -981,15 +989,18 @@ def design_inputs(gains, device, fs=48000):
 @pytest.mark.parametrize("geometry", DESIGN_GEOMETRIES)
 @pytest.mark.parametrize("gains", DESIGN_GAINS)
 def test_eq_design_kernel_matches_plain(cuda, gains, geometry):
-    """Both kernels, one launch counted: every table within one float32
-    ulp of the plain table's largest magnitude (both in float64, summed in
-    other orders), carry_w None where the plain version has none, and a
-    second launch bit for bit."""
+    """One call counted a call: every table within one float32 ulp of the
+    plain table's largest magnitude (both in float64, summed in other
+    orders), carry_w None where the plain version has none, and a second
+    call bit for bit."""
+    assert_design_matches_plain(design_inputs(gains, cuda) + geometry)
+
+
+def assert_design_matches_plain(args):
     from dsp_audio_project_tpu_torch.kernels.eq_design import (
         dynamic_operators_plain, eq_design, ulp_error,
     )
 
-    args = design_inputs(gains, cuda) + geometry
     before = eq_design.launches
     got = eq_design(*args)
     again = eq_design(*args)
@@ -1003,6 +1014,77 @@ def test_eq_design_kernel_matches_plain(cuda, gains, geometry):
         assert a.shape == b.shape and a.dtype == b.dtype == torch.float32
         assert ulp_error(a, b) <= 1.0
         assert torch.equal(a, c)
+
+
+# Three and five bands (d = 6, 10: d % 4 != 0, the 8-byte expand and zero
+# stores) and the power-of-two edges: U = 128 and 256 (A's chain ends on a
+# head), G = 1, K = 129 (R's largest exponent one bit past K = 128).
+@pytest.mark.parametrize("gains,geometry", [
+    ((6.0, -3.0, 12.0), (160, 128, 144)),
+    ((-15.0, 9.0, 0.05), (160, 16, 129)),
+    ((6.0, -3.0, 0.0, 12.0, -15.0), (160, 128, 144)),
+    ((15.0, -14.0, 3.0, -12.5, 1.0), (441, 32, 40)),
+    (DESIGN_GAINS[0], (128, 64, 4)),
+    (DESIGN_GAINS[2], (256, 16, 8)),
+    (DESIGN_GAINS[0], (160, 1, 144)),
+    (DESIGN_GAINS[1], (160, 128, 129)),
+])
+def test_eq_design_kernel_matches_plain_at_the_edges(cuda, gains, geometry):
+    assert_design_matches_plain(design_inputs(gains, cuda) + geometry)
+
+
+def test_eq_design_is_two_kernels(cuda):
+    """One call is the design kernel and the expand, one launch each as
+    the launcher reports; each name carries f64.  The call is profiled in
+    a child process: a profiler session in this one makes the later
+    profiler tests lose records."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+    import textwrap
+
+    from dsp_audio_project_tpu_torch.kernels.eq_design import (
+        cuda_layout, launch_grid,
+    )
+
+    child = textwrap.dedent("""
+        import json, torch
+        from torch.profiler import ProfilerActivity, profile
+        import dsp_audio_project_tpu_torch as pt
+        from dsp_audio_project_tpu_torch.kernels.eq_design import eq_design
+        from dsp_audio_project_tpu_torch.ops.eq_dynamic import _band_trig
+        from dsp_audio_project_tpu_torch.utils.deviceprof import device_rows
+        cfg = pt.EQConfig()
+        s, c = _band_trig(48000, cfg.band_centers, cfg.nyquist_safety)
+        args = (torch.tensor([6.0, -3.0, 0.0, 12.0, -15.0, 4.0],
+                             device="cuda"),
+                torch.as_tensor(s, device="cuda"),
+                torch.as_tensor(c, device="cuda"), cfg.q,
+                cfg.bypass_threshold_db, 160, 128, 144)
+        eq_design(*args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eq_design(*args)
+            torch.cuda.synchronize()
+        print(json.dumps([(name, count) for name, _, count
+                          in device_rows(prof.key_averages())]))
+    """)
+    root = pathlib.Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", child], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    rows = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(rows) == 2, rows
+    assert all("f64" in name and count == 1 for name, count in rows), rows
+    names = " ".join(name for name, _ in rows)
+    assert "eq_design_f64_kernel" in names and "eq_expand_f64_kernel" in names
+    grid = launch_grid(6, 160, 128, 144)
+    lay = cuda_layout(6, 160, 128, 144)
+    assert grid["launches"] == 2 == lay["launches"]
+    assert grid["power_blocks"] == lay["power_blocks"]
+    assert grid["blocks"] > grid["power_blocks"]
 
 
 def test_eq_design_in_a_cuda_graph(cuda):
@@ -1031,6 +1113,65 @@ def test_eq_design_in_a_cuda_graph(cuda):
         got = [t.clone() for t in outs]
         for a, b in zip(got, build()):
             assert torch.equal(a, b)
+
+
+def test_eq_design_graph_replayed_100_times(cuda):
+    """One captured call replayed 100 times, the gain vector alternating
+    between two sets copied into its buffer: each replay bit for bit
+    against the eager call for its vector."""
+    from dsp_audio_project_tpu_torch.kernels.eq_design import eq_design
+
+    g, sin_w0, cos_w0, q, thr = design_inputs(DESIGN_GAINS[0], cuda)
+    geometry = (160, 128, 144)
+
+    def build(gains):
+        return eq_design(gains, sin_w0, cos_w0, q, thr, *geometry)
+
+    vectors = (DESIGN_GAINS[0], DESIGN_GAINS[2])
+    eager = [[t.clone() for t in build(torch.tensor(v, device=cuda))
+              if t is not None] for v in vectors]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        build(g)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [t for t in build(g) if t is not None]
+    for i in range(100):
+        g.copy_(torch.tensor(vectors[i % 2]))
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(outs, eager[i % 2]):
+            assert torch.equal(a, b), i
+
+
+def test_eq_design_on_two_streams_at_once(cuda):
+    """Two builders for two gain vectors enqueued on two streams with no
+    order between them: each equal to its eager call bit for bit (they
+    share no scratch, flag or table)."""
+    from dsp_audio_project_tpu_torch.kernels.eq_design import eq_design
+
+    geometry = (160, 128, 144)
+    args = [design_inputs(v, cuda) for v in (DESIGN_GAINS[0],
+                                              DESIGN_GAINS[1])]
+    eager = [[t.clone() for t in eq_design(*a, *geometry) if t is not None]
+             for a in args]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = [None, None]
+    for _ in range(3):
+        start = torch.cuda.Event()
+        start.record()
+        for i, st in enumerate(streams):
+            st.wait_event(start)
+            with torch.cuda.stream(st):
+                got[i] = [t for t in eq_design(*args[i], *geometry)
+                          if t is not None]
+        torch.cuda.synchronize()
+        for outs, want in zip(got, eager):
+            for a, b in zip(outs, want):
+                assert torch.equal(a, b)
 
 
 def test_forward_frames_dynamic_on_the_kernels_matches_plain_builder(cuda):
